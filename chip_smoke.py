@@ -5,9 +5,10 @@
 Phases, one JSON line each; any failure exits non-zero:
   1. device   -- a CUDA card is present (prints nvidia-smi's name and power
                  limit);
-  2. build    -- nvcc builds kernels K1 (blend forward) and K4 (saturation
-                 count) from vegs_torch/csrc, in parallel; ptxas registers
-                 and shared memory per kernel;
+  2. build    -- nvcc builds kernels K1 (blend forward), K2 (blend
+                 backward), K3 (segment reduce) and K4 (saturation count)
+                 from vegs_torch/csrc, in parallel; ptxas registers and
+                 shared memory per kernel;
   3. k4_check -- K4 against its plain PyTorch version on a saturating
                  reduced scene (128x512, 60k Gaussians);
   4. k1_check -- K1 against its plain version at 128x512 with 30k Gaussians,
@@ -23,8 +24,25 @@ Phases, one JSON line each; any failure exits non-zero:
                  on that frame's inputs;
   6. timing   -- ms per frame, K1/K4 ms at the full-width shapes (CUDA
                  events), the plain versions' ms, the bound of each kernel,
-                 peak device memory;
-  7. the kernels summary line, then the card line, then the last line
+                 peak device memory; then a profile of 4 frames;
+  7. train    -- the training path at full width on the same field: ground
+                 truth rendered from it on the 3 cameras, sh_dc perturbed by
+                 +0.35, a synthetic unit normal map (normal loss on), and 8
+                 steps of `Trainer.train_iteration` (iterations 3001-3008,
+                 SH degree 3, bf16 aux, sat cull on, one densify-and-prune
+                 event at the end of 3008), with the launch counters reset
+                 just before; loss per step, ms per step, the densify step's
+                 time, peak memory, launches (each kernel once per step),
+                 then capacities re-probed for the densified field and a
+                 profile of 2 more steps on it;
+  8. k2/k3    -- K2 and K3 against their plain versions on the first
+                 step's full-width inputs, with card, plain, bound and (K3)
+                 library times;
+  9. grad     -- one step's gradients (every field leaf and the means2d
+                 tap) through the kernels on the card against the plain
+                 versions on the CPU, on a reduced scene (128x512, 50k
+                 Gaussians, bf16 aux);
+ 10. the kernels summary line, then the card line, then the last line
      {"ok": true, "device": {...}}.
 
 Tolerances: K4 counts must agree (a tile may differ only by exactly one
@@ -34,6 +52,19 @@ every channel outside pixels whose stop index differs, and those at most
 0.1% of the pixels -- the plain version prefix-sums log(1 - alpha) with a
 parallel scan and accumulates the channels with a matmul, the kernel walks
 each pixel sequentially with FMAs, so the sums differ in order only.
+
+K2, K3 and the step gradients are each held by a limit set from the
+readings of a sound run on an H100, and each check also reads a control --
+a deliberately wrong result -- which must fall outside the limit (readings
+and controls in PERF.md). K2, on the instances of tiles whose pixels all
+stop where the plain forward stops (such flip tiles at most 1%): |d| <=
+1e-4 of the largest |plain| of the f32 row, and of the aux row within the
+instance's group (its tile's 256-instance batch), plus one bf16 ulp (2^-7
+|ref|) on bf16 rows; control: the kernel's output 1% off on the instances
+after each tile's first 256. K3: |d| <= 1e-5 * (sum of |x| over the
+segment) -- the plain version adds with atomics in any order on the card;
+control: each segment's last column left out. Step gradients: relative L2
+error <= 1e-4 per leaf; control: K2's f32 rows rounded to bf16.
 """
 
 from __future__ import annotations
@@ -67,10 +98,29 @@ PEAK_F32_PER_S = 67e12
 #   tested   -- alpha > 0: T from log T 2, the stop test 3;
 #   included -- K1: the weight 1, 11 channel FMAs 22, the log-T update 4;
 #               K4: the log-T update 4.
+#   included -- K2: the weight 1, dw 22, the suffix sum 2, dL 1, dalpha 4,
+#               the clamp test and dpower 2, six monomials 6, dop 1, eleven
+#               channel products 11, the log-T update 4, and the 18 values
+#               summed over the tile's pixels 18.
 OPS_WALKED, OPS_TESTED = 18, 5
-OPS_INCLUDED = {"K1": 27, "K4": 4}
+OPS_INCLUDED = {"K1": 27, "K2": 72, "K4": 4}
 
 K1_ATOL, K1_RTOL, MAX_FLIP_SHARE = 1e-5, 1e-4, 1e-3
+K2_RTOL = 1e-4
+# the scale each K2 row set is held by (see `k2_readings`): the f32 rows'
+# low-T instances cancel in f32 (dL = tail - cum), in the kernel and the
+# plain version alike, so they are held by the row's max
+K2_SCALE = {"f32_rows": "row", "aux_rows": "group"}
+BF16_ULP, K2_MAX_FLIP_TILES = 2.0 ** -7, 0.01
+K3_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+CONTROL_ERR = 0.01  # the K2 control's error on the deep instances
+
+# Iterations 3001-3008 (SH degree 3 active); the one densify-and-prune
+# event falls at 3008, after that step's loss, so the losses compare the
+# same field's training and the 2 profiled steps run on the densified field.
+TRAIN_FIRST_IT, TRAIN_STEPS, DENSIFY_EVERY = 3001, 8, 8
+TRAIN_CAMS = (0, 1, 2, 0, 1, 2, 1, 0)  # the last step sees the first's view
 
 
 def emit(phase: str, **kw) -> None:
@@ -195,7 +245,10 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 
 
 KERNEL_GROUPS = (("K1 blend_fwd", ("blend_fwd_kernel",)),
+                 ("K2 blend_bwd", ("blend_bwd_kernel",)),
+                 ("K3 segreduce", ("segreduce_kernel",)),
                  ("K4 satcount", ("satcount_kernel",)),
+                 ("conv (SSIM)", ("conv", "Conv", "cudnn", "implicit_gemm")),
                  ("sort", ("sort", "Sort", "radix", "Radix")),
                  ("scan", ("scan", "Scan", "cumsum", "cummax")),
                  ("gather/scatter", ("index", "Index", "gather", "scatter")),
@@ -235,6 +288,365 @@ def profile_frames(fn) -> dict:
             "device_idle_share": (1 - busy / wall_us) if spans else None,
             "kernels": len(spans), "ms_by_group": groups,
             "top_kernels_ms": dict(top)}
+
+
+def slot_tiles(tile_starts, k, grid):
+    """Per padded slot: its tile, and its 256-instance batch in the tile's
+    range (slots past tile_starts[-1] fall in the last tile's tail)."""
+    from vegs_torch.ops.binning import PAD_ALIGN
+
+    ts = tile_starts.long()
+    slot = torch.arange(k, device=ts.device)
+    tile = torch.searchsorted(ts[1:], slot, right=True).clamp(
+        max=grid.num_tiles - 1)
+    return tile, (slot - ts[tile]) // PAD_ALIGN
+
+
+def deep_control(tile_starts, k, grid):
+    """[k] f32 factors of the control: 1 + CONTROL_ERR on every instance
+    after its tile's first 256 (the deep, low-T instances), 1 elsewhere --
+    an error a wrong kernel could make there and nowhere else."""
+    _, batch = slot_tiles(tile_starts, k, grid)
+    return 1.0 + CONTROL_ERR * (batch > 0).float()
+
+
+def staged_loss(field, tap, cam, gt, normal, sh_degree, bg, opt_cfg,
+                raster_cfg):
+    """The training step's loss (`train.loss_fn`) from the stages that
+    `rasterize` runs on the kernel path, called one by one -- `stage`, the
+    blend (`BlendFn`: K1, and K2 in the backward), `raster_out`,
+    `image_loss` -- so that the blend's payload and padded output are at
+    hand. Returns (loss, Staged, padded output)."""
+    from vegs_torch.ops.blend_cuda import BlendFn
+    from vegs_torch.ops.rasterize import raster_out, stage
+    from vegs_torch.render import field_arrays
+    from vegs_torch.train import image_loss
+
+    a = field_arrays(field, sh_degree)
+    st = stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
+               sh_degree=3, valid=a.valid, means2d_offset=tap,
+               config=raster_cfg)
+    g = st.grid
+    out_p = BlendFn.apply(st.payload_f32, st.payload_aux,
+                          st.binned.tile_starts, g, g.padded_height,
+                          g.padded_width)
+    ro = raster_out(st, out_p[:, :cam.height, :cam.width], bg)
+    return image_loss(ro, gt, normal, 1.0, opt_cfg)[0], st, out_p
+
+
+def step_kernel_inputs(trainer, cam, it, dev):
+    """K2's and K3's inputs of the step `trainer` would take next on `cam`:
+    the same loss, its gradient at the blend's padded output (K2's dout),
+    and K3's columns from K2's output on them (no Adam update). Returns
+    (K2 args, K3 args, the loss)."""
+    from vegs_torch.ops import blend_cuda
+    from vegs_torch.ops.rasterize import cotangent_columns
+
+    field = trainer.state.field
+    tap = torch.zeros((field.capacity, 2), device=dev, requires_grad=True)
+    gt = torch.from_numpy(np.asarray(cam.original_image, np.float32)).to(dev)
+    normal = torch.from_numpy(np.asarray(cam.world_normal(), np.float32)
+                              ).to(dev)
+    loss, st, out_p = staged_loss(
+        field, tap, cam.device_params(dev), gt, normal,
+        trainer._active_sh_degree(it), trainer.bg, trainer.cfg.opt,
+        trainer.raster_cfg)
+    (dout,) = torch.autograd.grad(loss, out_p)
+    k2_args = (st.payload_f32.detach(), st.payload_aux.detach(),
+               st.binned.tile_starts, out_p.detach(), dout.contiguous(),
+               st.grid)
+    dpf, dpa = blend_cuda.blend_bwd(*k2_args)
+    # the segment ends as `stage` gives them to the gather (the dummy row n
+    # gets an empty segment)
+    ends = torch.cat([st.binned.gauss_ends, st.binned.gauss_ends[-1:]])
+    k3_args = cotangent_columns(dpf, dpa, st.binned.order, ends)
+    torch.cuda.synchronize()
+    return k2_args, k3_args, float(loss.detach())
+
+
+def k2_readings(kern, ref, tile_starts, grid, keep, ulp):
+    """The largest |kernel - plain| (less one bf16 ulp of the plain value on
+    bf16 rows), on the slots in `keep` (tiles without a stop flip), over
+    two scales of each gradient row: the row's largest |plain| ("row"), and
+    the largest |plain| of the instance's group, the 256-instance batch of
+    its tile in which it is staged ("group"; a group whose plain gradients
+    are all zero reads inf unless the kernel's are zero too)."""
+    tile, batch = slot_tiles(tile_starts, kern.shape[1], grid)
+    group = torch.unique(tile * (batch.max() + 1) + batch,
+                         return_inverse=True)[1]
+    ng = int(group.max()) + 1
+    d = ((kern - ref).abs() - ulp * ref.abs()).clamp(min=0)
+    d = torch.where(keep[None, :], d, torch.zeros((), device=d.device))
+    idx = group[None, :].expand(ref.shape[0], -1)
+    gref = ref.new_zeros(ref.shape[0], ng).scatter_reduce_(
+        1, idx, ref.abs(), "amax")
+    gd = ref.new_zeros(ref.shape[0], ng).scatter_reduce_(1, idx, d, "amax")
+    inf = torch.tensor(float("inf"), device=d.device)
+    by_group = torch.where(gref > 0, gd / gref.clamp(min=1e-30),
+                           torch.where(gd > 0, inf, torch.zeros_like(gd)))
+    by_row = d.amax(dim=1) / ref.abs().amax(dim=1).clamp(min=1e-30)
+    return {"row": float(by_row.max()), "group": float(by_group.max())}
+
+
+def compare_k2(k2_args):
+    """K2 vs blend_bwd_ref_tiles on the same CUDA inputs, outside the tiles
+    where K1 and its plain version stop at different instances: the
+    readings (`k2_readings`) of the sound kernel and of the control, the
+    kernel's output off by CONTROL_ERR on the deep instances
+    (`deep_control`)."""
+    from vegs_torch.ops import blend_cuda
+
+    pf, pa, ts, out, dout, grid = k2_args
+    hp, wp = grid.padded_height, grid.padded_width
+    _, stop = blend_cuda.blend(pf, pa, ts, grid, hp, wp, return_stop=True)
+    pairs = {}
+    _, stop_ref = blend_cuda.blend_ref_tiles(pf, pa, ts, grid, hp, wp,
+                                             return_stop=True, pairs=pairs)
+    kpf, kpa = blend_cuda.blend_bwd(*k2_args)
+    t0 = time.perf_counter()
+    rpf, rpa = blend_cuda.blend_bwd_ref_tiles(*k2_args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for x in (kpf, kpa, rpf, rpa):
+        if not torch.isfinite(x).all():
+            raise AssertionError("K2 or its plain version is not finite")
+    flips = (stop != stop_ref).reshape(grid.nty, grid.tile_h, grid.ntx,
+                                       grid.tile_w).any(dim=3).any(dim=1)
+    tile, batch = slot_tiles(ts, pf.shape[1], grid)
+    keep = ~flips.reshape(-1)[tile]
+    ctl = deep_control(ts, pf.shape[1], grid)
+    bf16_ulp = BF16_ULP if pa.dtype == torch.bfloat16 else 0.0
+    res = {"tiles": grid.num_tiles, "flip_tiles": int(flips.sum()),
+           "instances": int(ts[-1]),
+           "deep_instances": int((batch > 0)[:int(ts[-1])].sum()),
+           "nonzero_dop": int((kpf[5] != 0).sum()), "plain_ms": plain_s * 1e3,
+           "pairs": pairs}
+    for rows, k, r, ulp in (("f32_rows", kpf, rpf, 0.0),
+                            ("aux_rows", kpa, rpa.float(), bf16_ulp)):
+        k_ctl = (k.float() * ctl).to(k.dtype).float()
+        res[rows] = {
+            "reading": k2_readings(k.float(), r, ts, grid, keep, ulp),
+            "control_reading": k2_readings(k_ctl, r, ts, grid, keep, ulp)}
+    res["max_abs_err"] = float(max(
+        (kpf - rpf)[:, keep].abs().max(),
+        (kpa.float() - rpa.float())[:, keep].abs().max()))
+    return res
+
+
+def hold(name, reading, limit, control=None):
+    """Fail unless the sound reading is within `limit` and the control
+    reading (of a deliberately wrong result) is outside it."""
+    if not reading <= limit:
+        raise AssertionError(f"{name}: reading {reading} over the limit "
+                             f"{limit}")
+    if control is not None and not control > limit:
+        raise AssertionError(f"{name}: the control reads {control}, within "
+                             f"the limit {limit}: the check is too loose")
+
+
+def compare_k3(k3_args):
+    """K3 vs segment_reduce_ref (index_add_, atomics on the card) on the
+    same CUDA inputs; the tolerance scales with each segment's |x| sum."""
+    from vegs_torch.ops import segreduce
+
+    cols, starts, ends = k3_args
+    got = segreduce.segment_reduce_cols(cols, starts, ends)
+    t0 = time.perf_counter()
+    ref = segreduce.segment_reduce_ref(cols, starts, ends)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    mag = segreduce.segment_reduce_ref(cols.abs(), starts, ends)
+    # the control: each nonempty segment's last column left out (an
+    # off-by-one segment end)
+    short = segreduce.segment_reduce_ref(
+        cols, starts, torch.maximum(ends - 1, starts))
+    d = (got - ref).abs()
+
+    def reading(x):
+        return float(((x - ref).abs() / mag.clamp(min=1e-30)).max())
+
+    if not torch.isfinite(got).all():
+        raise AssertionError("K3 output is not finite")
+    return {"segments": int(starts.shape[0]), "columns": int(cols.shape[1]),
+            "rows": int(cols.shape[0]), "summed": int(ends[-1] - starts[0]),
+            "max_abs_err": float(d.max()), "reading": reading(got),
+            "control_reading": reading(short), "plain_ms": plain_s * 1e3}
+
+
+def grad_check(dev, n=50_000, seed=SEED):
+    """One step's gradients through the kernels (card) and the plain
+    versions (CPU tensors) on a reduced scene: relative L2 error per leaf,
+    and the same for the control -- the kernel path with K2's f32 gradient
+    rows rounded to bf16 (as a kernel that wrote them in the aux dtype
+    would), through a tensor hook on the blend's payload."""
+    from vegs_torch import convert
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.ops.rasterize import RasterizeConfig
+    from vegs_torch.train import loss_fn
+    from vegs_torch.utils.synthetic import unit_normal_map
+
+    h, w = 128, 512
+    rng = np.random.default_rng(seed + 7)
+    z = rng.uniform(1.5, 10.0, n)
+    arrays = {
+        "means": np.stack([rng.uniform(-0.5, 0.5, n) * z,
+                           rng.uniform(-0.14, 0.14, n) * z, z], 1),
+        "quats": rng.normal(size=(n, 4)),
+        "log_scales": np.log(rng.uniform(0.01, 0.1, (n, 3))),
+        "sh_dc": rng.normal(0, 0.5, (n, 1, 3)),
+        "sh_rest": rng.normal(0, 0.1, (n, 15, 3)),
+        "opacity_logit": rng.normal(0, 1.5, (n, 1)),
+        "valid": np.ones(n, bool),
+    }
+    gt = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+    normal = unit_normal_map(h, w, seed)
+    cfg = RasterizeConfig(k_cap=1 << 21, k_pad=1 << 21)
+    opt = VegsConfig().opt
+    grads, times = {}, {}
+    for run, d in (("card", dev), ("plain", torch.device("cpu")),
+                   ("control", dev)):
+        field = convert.field_from_numpy(arrays, device=d)
+        tap = torch.zeros((n, 2), device=d, requires_grad=True)
+        cam = origin_camera(h, w, 1.0, 0.3, d)
+        args = (torch.from_numpy(gt).to(d), torch.from_numpy(normal).to(d))
+        t0 = time.perf_counter()
+        if run == "control":
+            loss, st, _ = staged_loss(field, tap, cam, *args, 3,
+                                      torch.zeros(3, device=d), opt, cfg)
+            st.payload_f32.register_hook(
+                lambda g: g.to(torch.bfloat16).to(torch.float32))
+            dropped = st.binned.num_dropped
+        else:
+            loss, _, _, out = loss_fn(field, tap, cam, *args, 1.0, 3,
+                                      torch.zeros(3, device=d), opt_cfg=opt,
+                                      raster_cfg=cfg)
+            dropped = out.num_dropped
+        loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        times[run] = time.perf_counter() - t0
+        if int(dropped):
+            raise AssertionError("the gradient-check scene drops instances")
+        grads[run] = {k: getattr(field, k).grad.cpu()
+                      for k in convert.FIELD_KEYS[:-1]}
+        grads[run]["means2d"] = tap.grad.cpu()
+    errs = {"card": {}, "control": {}}
+    for k, ref in grads["plain"].items():
+        for run in errs:
+            got = grads[run][k]
+            if not torch.isfinite(got).all() or float(ref.norm()) == 0:
+                raise AssertionError(f"step gradient {k}: not finite or zero")
+            errs[run][k] = float((got - ref).norm() / ref.norm())
+    return {"scene": f"{h}x{w}, {n} Gaussians, bf16 aux",
+            "rel_l2_err": errs["card"],
+            "reading": max(errs["card"].values()),
+            "control_rel_l2_err": errs["control"],
+            "control_reading": max(errs["control"].values()),
+            "card_s": times["card"], "plain_cpu_s": times["plain"]}
+
+
+def train_phase(scene, dev, card) -> dict:
+    """The training path at full width on `scene`'s field (see phase 7)."""
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.ops import blend_cuda, satcull, segreduce
+    from vegs_torch.render import render
+    from vegs_torch.train import Trainer
+    from vegs_torch.utils.synthetic import unit_normal_map
+
+    cams = scene.getTrainCameras()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cfg, need_raw, need_pad = sized_config(scene.gaussians, cams, dev)
+        for i, cam in enumerate(cams):  # ground truth: the unperturbed field
+            out = render(cam, scene.gaussians,
+                         config=cfg._replace(forward_only=True))
+            if int(out.num_dropped):
+                raise AssertionError("ground-truth render drops instances")
+            cam.image = torch.clamp(out.rgb, 0, 1).cpu().numpy()
+            cam.normal = unit_normal_map(H, W, seed=i)
+    with torch.no_grad():
+        scene.gaussians.sh_dc += 0.35
+    tcfg = VegsConfig()
+    tcfg.opt.densification_interval = DENSIFY_EVERY
+    trainer = Trainer(tcfg, scene, raster_cfg=cfg, device=dev)
+    k2_args, k3_args, k_loss = step_kernel_inputs(
+        trainer, cams[TRAIN_CAMS[0]], TRAIN_FIRST_IT, dev)
+    setup_s = time.perf_counter() - t0
+
+    counters = {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
+                "K3": segreduce.segment_reduce_cols, "K4": satcull.satcount}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    steps = []
+    its = range(TRAIN_FIRST_IT, TRAIN_FIRST_IT + TRAIN_STEPS)
+    for it, ci in zip(its, TRAIN_CAMS):
+        before = {k: c.launches for k, c in counters.items()}
+        n_before = trainer.state.field.capacity
+        t1 = time.perf_counter()
+        m = trainer.train_iteration(it, camera=cams[ci])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        steps.append({"it": it, "cam": ci, "ms": dt * 1e3,
+                      "densify": it % DENSIFY_EVERY == 0,
+                      "launches": {k: c.launches - before[k]
+                                   for k, c in counters.items()},
+                      "capacity": [n_before, trainer.state.field.capacity],
+                      **{k: m[k] for k in ("loss", "l1", "normal_loss",
+                                            "num_dropped", "num_needed",
+                                            "num_needed_raw")}})
+        if m["num_dropped"]:
+            raise AssertionError(f"step {it} dropped instances: {steps[-1]}")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [st["loss"] for st in steps]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss not finite and descending: {losses}")
+    if abs(k_loss - losses[0]) > 1e-6 * abs(losses[0]):
+        raise AssertionError(f"the loss of K2's and K3's inputs {k_loss} is "
+                             f"not the first step's {losses[0]}")
+    for st in steps:
+        if any(v != 1 for v in st["launches"].values()):
+            raise AssertionError(f"a step did not launch each kernel once: {st}")
+    n_densify = sum(st["densify"] for st in steps)
+    if n_densify != 1:
+        raise AssertionError(f"{n_densify} densify events in the run")
+    plain_steps = [st["ms"] for st in steps[1:] if not st["densify"]]
+    with torch.inference_mode():  # capacities for the densified field
+        new, re_raw, re_pad = sized_config(trainer.state.field, cams, dev)
+    trainer.raster_cfg = trainer.raster_cfg._replace(
+        k_cap=max(new.k_cap, trainer.raster_cfg.k_cap),
+        k_pad=max(new.k_pad, trainer.raster_cfg.k_pad))
+    res = {"steps": TRAIN_STEPS, "first_it": TRAIN_FIRST_IT,
+           "capacity": trainer.state.field.capacity,
+           "n_active": [N_REF, int(trainer.state.field.num_active())],
+           "k_cap": cfg.k_cap, "k_pad": cfg.k_pad, "need_raw": need_raw,
+           "need_pad": need_pad,
+           "after_densify": {"need_raw": re_raw, "need_pad": re_pad,
+                             "k_cap": trainer.raster_cfg.k_cap,
+                             "k_pad": trainer.raster_cfg.k_pad},
+           "loss": losses, "kernel_inputs_loss": k_loss,
+           "ms_per_step": float(np.median(plain_steps)),
+           "ms_steps": [st["ms"] for st in steps],
+           "densify_step_ms": next(st["ms"] for st in steps if st["densify"]),
+           "max_memory_allocated": peak, "launches": launches,
+           "setup_s": setup_s, "per_step": steps}
+    emit("train", card=card, **res)
+
+    after = []
+
+    def two_steps():
+        for it, ci in zip(range(its.stop, its.stop + 2), TRAIN_CAMS):
+            after.append(trainer.train_iteration(it, camera=cams[ci]))
+
+    prof = profile_frames(two_steps)
+    if any(m["num_dropped"] or not np.isfinite(m["loss"]) for m in after):
+        raise AssertionError(f"steps on the densified field: {after}")
+    emit("train_profile", card=card, steps=2,
+         loss=[m["loss"] for m in after], **prof)
+    res["k2_args"], res["k3_args"] = k2_args, k3_args
+    return res
 
 
 def sized_config(field, cams_augs, device):
@@ -384,7 +796,8 @@ def main() -> int:
                            raster_cfg=cfg)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"K1": blend_cuda.blend.launches, "K4": satcull.satcount.launches}
+    render_launches = {"K1": blend_cuda.blend.launches,
+                       "K4": satcull.satcount.launches}
     peak_mem = torch.cuda.max_memory_allocated()
     n_frames = sum(len(f) for f in frames.values())
     if n_frames < 8:
@@ -395,11 +808,12 @@ def main() -> int:
                 raise AssertionError(f"{name}: bad frame {f.shape}")
             if f.min() < 0 or f.max() > 1:
                 raise AssertionError(f"{name}: frame outside [0, 1]")
-    if min(launches.values()) < n_frames:
-        raise AssertionError(f"kernel launches {launches} < {n_frames} frames")
+    if min(render_launches.values()) < n_frames:
+        raise AssertionError(f"kernel launches {render_launches} < "
+                             f"{n_frames} frames")
     emit("main", frames=n_frames, trajectories=list(frames), n=N_REF,
          capacity=scene.gaussians.capacity, k_cap=cfg.k_cap, k_pad=cfg.k_pad,
-         need_raw=need_raw, need_pad=need_pad, launches=launches,
+         need_raw=need_raw, need_pad=need_pad, launches=render_launches,
          frame_mean=[float(np.mean(f[0])) for f in frames.values()],
          setup_s=setup_s, card=card)
 
@@ -493,7 +907,63 @@ def main() -> int:
     emit("profile", card=card, frames=len(DEFAULT_AUG_PARAMS),
          **profile_frames(four_frames))
 
-    # -- 7. summary ---------------------------------------------------------
+    # -- 7. the training path at full width ---------------------------------
+    train = train_phase(scene, dev, card)
+
+    # -- 8. K2 and K3 on the first step's inputs -----------------------------
+    k2_args, k3_args = train.pop("k2_args"), train.pop("k3_args")
+    k2 = compare_k2(k2_args)
+    k2_ms = cuda_ms(lambda: blend_cuda.blend_bwd(*k2_args))
+    pf, pa, ts2, out2, dout2, grid2 = k2_args
+    hp2, wp2 = grid2.padded_height, grid2.padded_width
+    k2_bytes = (k2["pairs"]["slots"] * (7 * 4 + 10 * pa.element_size())
+                + pf.shape[1] * (8 * 4 + 16 * pa.element_size())
+                + 2 * 12 * 4 * hp2 * wp2 + 4 * (grid2.num_tiles + 1))
+    k2_bound, k2_by, k2_ops = bound(k2_bytes, k2["pairs"], "K2")
+    emit("k2_check", scene="376x1408, 2,233,571 Gaussians, first train step",
+         aux=str(pa.dtype), card=card, ms=k2_ms, bound_ms=k2_bound,
+         bound_by=k2_by, ops=k2_ops, bytes=k2_bytes,
+         limit=K2_RTOL, held=K2_SCALE, **k2)
+    for rows, scale in K2_SCALE.items():
+        hold(f"K2 {rows} by {scale}", k2[rows]["reading"][scale], K2_RTOL,
+             k2[rows]["control_reading"][scale])
+    if k2["flip_tiles"] > K2_MAX_FLIP_TILES * grid2.num_tiles:
+        raise AssertionError(f"K2: {k2['flip_tiles']} stop-flip tiles")
+
+    from vegs_torch.ops import segreduce
+
+    k3 = compare_k3(k3_args)
+    cols, starts, ends = k3_args
+    k3_ms = cuda_ms(lambda: segreduce.segment_reduce_cols(*k3_args))
+    total = int(ends[-1])
+    data = cols[:, :total].contiguous()
+    lengths = (ends - starts).long().expand(cols.shape[0], -1).contiguous()
+    lib = torch.segment_reduce(data, "sum", lengths=lengths, axis=1)
+    lib_err = float((lib - segreduce.segment_reduce_cols(*k3_args)).abs().max())
+    k3_lib_ms = cuda_ms(lambda: torch.segment_reduce(
+        data, "sum", lengths=lengths, axis=1))
+    k3_bytes = 4 * (cols.shape[0] * (total + starts.shape[0])
+                    + 2 * starts.shape[0])
+    k3_ops = cols.shape[0] * total
+    k3_b_ms = k3_bytes / PEAK_BYTES_PER_S * 1e3
+    k3_o_ms = k3_ops / PEAK_F32_PER_S * 1e3
+    k3_bound = max(k3_b_ms, k3_o_ms)
+    k3_by = "bytes" if k3_b_ms >= k3_o_ms else "operations"
+    emit("k3_check", scene="376x1408, 2,233,571 Gaussians, first train step",
+         card=card, ms=k3_ms, library_ms=k3_lib_ms, library_max_abs_err=lib_err,
+         bound_ms=k3_bound, bound_by=k3_by, bytes=k3_bytes, ops=k3_ops,
+         limit=K3_RTOL, **k3)
+    hold("K3", k3["reading"], K3_RTOL, k3["control_reading"])
+    del k2_args, k3_args, data, lengths, lib
+
+    # -- 9. one step's gradients: kernels against plain versions -------------
+    grad = grad_check(dev)
+    emit("grad_check", card=card, limit=GRAD_RTOL, **grad)
+    hold("step gradients", grad["reading"], GRAD_RTOL,
+         grad["control_reading"])
+
+    # -- 10. summary ---------------------------------------------------------
+    launches = {**train["launches"]}
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
          "source": "vegs_torch/csrc/blend_fwd.cu",
@@ -503,6 +973,23 @@ def main() -> int:
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+        {"name": "K2 blend_bwd", "route": "cuda",
+         "source": "vegs_torch/csrc/blend_bwd.cu",
+         "replaces": "vegs_tpu/ops/blend_pallas.py:274",
+         "launches": launches["K2"], "matches_plain": True,
+         "max_abs_err": k2["max_abs_err"],
+         "reading": max(k2[rows]["reading"][scale]
+                        for rows, scale in K2_SCALE.items()),
+         "flip_tiles": k2["flip_tiles"],
+         "ms": k2_ms, "plain_ms": k2["plain_ms"],
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        {"name": "K3 segreduce", "route": "cuda",
+         "source": "vegs_torch/csrc/segreduce.cu",
+         "replaces": "vegs_tpu/ops/segreduce.py:46",
+         "launches": launches["K3"], "matches_plain": True,
+         "max_abs_err": k3["max_abs_err"],
+         "ms": k3_ms, "plain_ms": k3["plain_ms"],
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms},
         {"name": "K4 satcount", "route": "cuda",
          "source": "vegs_torch/csrc/satcount.cu",
          "replaces": "vegs_tpu/ops/satcull.py:65",

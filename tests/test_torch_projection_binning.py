@@ -171,8 +171,20 @@ def test_depth_key_and_tile_rects():
 
 
 def test_grad_maps_not_ported_yet():
+    """The grad maps are ported now (exact parity with tie-free keys is in
+    tests/test_torch_rasterize_grad.py); here, on a scene whose keys tie,
+    their invariants: each raw row lands on a padded slot of its own
+    Gaussian, every padded instance has exactly one row, and the rows of
+    Gaussian g end at gauss_ends[g]."""
     pj = _jax_projected()
-    with pytest.raises(NotImplementedError):
-        tbin.bin_gaussians(_t(pj.means2d), _t(pj.depths), _t(pj.radii_xy),
+    b = tbin.bin_gaussians(_t(pj.means2d), _t(pj.depths), _t(pj.radii_xy),
                            tbin.TileGrid.for_image(H, W), K_CAP,
+                           conics=_t(pj.conics), opacities=_t(pj.opacities),
                            want_grad_maps=True)
+    order = b.order.numpy()
+    live = order < K_CAP
+    assert int(live.sum()) == int(b.num_instances) > 1000
+    row_g = np.searchsorted(b.gauss_ends.numpy(), np.arange(len(order)),
+                            side="right")
+    np.testing.assert_array_equal(b.gidx.numpy()[order[live]], row_g[live])
+    assert len(np.unique(order[live])) == int(live.sum())

@@ -2,17 +2,21 @@
 
 The field lives in fixed-capacity tensors with a validity mask, stored raw
 (pre-activation): exp for scales, sigmoid for opacity, L2-normalize for
-quaternions. SH features are split into a DC row and 15 rest rows.
-Densification and `create_from_points` wait for the training slice.
+quaternions. SH features are split into a DC row and 15 rest rows. Beside
+the field: the running densification statistics and the initialisation
+from a point cloud.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from . import geometry, resolve_device
+from . import geometry, resolve_device, sh as sh_lib
 
 
 class GaussianField(nn.Module):
@@ -59,6 +63,24 @@ class GaussianField(nn.Module):
         return geometry.strip_symmetric(self.covariance(scale_modifier))
 
 
+@dataclasses.dataclass
+class DensifyStats:
+    """Running densification statistics, row-aligned with the field."""
+
+    max_radii2d: torch.Tensor         # [C] max observed screen radius (px)
+    xyz_gradient_accum: torch.Tensor  # [C] sum of ||grad means2D|| (NDC)
+    denom: torch.Tensor               # [C] number of accumulations
+
+    @staticmethod
+    def zeros(capacity: int, device=None) -> "DensifyStats":
+        dev = resolve_device(device)
+
+        def z():
+            return torch.zeros((capacity,), dtype=torch.float32, device=dev)
+
+        return DensifyStats(max_radii2d=z(), xyz_gradient_accum=z(), denom=z())
+
+
 def sh_band_mask(active_degree: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """[16] mask: 1 for coefficients within the active SH degree else 0."""
     degrees = np.repeat(np.arange(4), np.arange(4) * 2 + 1)  # 0,1,1,1,2,...
@@ -73,6 +95,75 @@ def round_capacity(n: int, multiple: int = 4096) -> int:
     """Bucket capacities to a multiple of `multiple` (as the JAX package
     does, so layouts compare)."""
     return max(multiple, -(-n // multiple) * multiple)
+
+
+def knn_mean_sq_dist(points: np.ndarray, k: int = 3) -> np.ndarray:
+    """Mean squared distance from each point to its k nearest neighbours
+    (host side, init time only; a KD-tree)."""
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(points, np.float64)
+    if len(pts) <= k:
+        return np.full((len(pts),), 1e-4, np.float32)
+    tree = cKDTree(pts)
+    dists, _ = tree.query(pts, k=k + 1, workers=-1)  # self at index 0
+    return np.mean(dists[:, 1:] ** 2, axis=1).astype(np.float32)
+
+
+def create_from_points(
+    points: np.ndarray,
+    colors: Optional[np.ndarray] = None,
+    capacity: Optional[int] = None,
+    init_opacity: float = 0.1,
+    scale_clip: tuple[float, float] = (1e-7, 0.2),
+    device=None,
+) -> GaussianField:
+    """Seed a field from a point cloud: isotropic scale sqrt(mean squared
+    distance to 3 nearest neighbours), the SQUARED distance clamped to
+    `scale_clip` first (the reference's order); identity rotation; opacity
+    `init_opacity`; padded to `capacity` with valid=False rows, on `device`
+    (default: the card)."""
+    dev = resolve_device(device)
+    points = np.asarray(points, np.float32)
+    n = points.shape[0]
+    cap = capacity if capacity is not None else round_capacity(n)
+    if cap < n:
+        raise ValueError(f"capacity {cap} < point count {n}")
+    if colors is None:
+        colors = np.full((n, 3), 0.5, np.float32)
+    dc = sh_lib.rgb_to_sh(np.asarray(colors, np.float32)).astype(np.float32)
+    d2 = np.clip(knn_mean_sq_dist(points), scale_clip[0], scale_clip[1])
+    log_s = np.log(np.sqrt(d2))[:, None].repeat(3, 1).astype(np.float32)
+
+    def pad(x, fill=0.0):
+        out = np.full((cap,) + x.shape[1:], fill, np.float32)
+        out[:n] = x
+        return torch.from_numpy(out).to(dev)
+
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 0] = 1.0
+    valid = np.zeros((cap,), bool)
+    valid[:n] = True
+    logit = float(np.log(init_opacity / (1.0 - init_opacity)))
+    return GaussianField(
+        means=pad(points),
+        quats=pad(quats),
+        log_scales=pad(log_s, fill=np.float32(np.log(1e-7))),
+        sh_dc=pad(dc[:, None, :]),
+        sh_rest=torch.zeros((cap, 15, 3), dtype=torch.float32, device=dev),
+        opacity_logit=pad(np.full((n, 1), logit, np.float32)),
+        valid=torch.from_numpy(valid).to(dev),
+    )
+
+
+def create_random(generator: torch.Generator, n: int, extent: float = 1.0,
+                  capacity=None, device=None) -> GaussianField:
+    """Random field for tests: points uniform in [-extent, extent]^3 and
+    colors uniform in [0, 1], drawn on the CPU from `generator`."""
+    pts = (torch.rand((n, 3), generator=generator) * 2 - 1) * extent
+    cols = torch.rand((n, 3), generator=generator)
+    return create_from_points(pts.numpy(), cols.numpy(), capacity=capacity,
+                              device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vegs_torch"
 
 # library name -> source file (each includes the shared headers in csrc/)
-SOURCES = {"blend_fwd": "blend_fwd.cu", "satcount": "satcount.cu"}
+SOURCES = {"blend_fwd": "blend_fwd.cu", "blend_bwd": "blend_bwd.cu",
+           "satcount": "satcount.cu", "segreduce": "segreduce.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

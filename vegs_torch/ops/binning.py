@@ -18,8 +18,9 @@ Layout contract (consumed by the blend kernels):
 Key packing: key = tile_id << S | (float32_bits(depth) >> (31 - S)) with
 S = grid.tile_shift (19 while the grid fits 4094 tiles).
 
-The raw->padded `order` / `gauss_ends` maps that the training backward needs
-are not ported yet (`want_grad_maps=True` raises NotImplementedError).
+With `want_grad_maps=True`, `bin_gaussians` also returns the raw->padded
+slot map `order` and the per-Gaussian exclusive ends `gauss_ends` that the
+gather's backward (`rasterize.GatherExpand`) segment-reduces by.
 """
 
 from __future__ import annotations
@@ -87,6 +88,8 @@ class RawBinned(NamedTuple):
     """The (tile, depth)-sorted instance stream before the padded relayout."""
     key_sorted: torch.Tensor   # [k_cap] packed keys (SENTINEL tail)
     gidx_sorted: torch.Tensor  # [k_cap] Gaussian index per sorted instance
+    rawslot_sorted: torch.Tensor  # [k_cap] raw slot of each sorted instance
+    gidx_raw: torch.Tensor     # [k_cap] Gaussian index per raw slot
     raw_starts: torch.Tensor   # [num_tiles + 1] unpadded per-tile ranges
     num_real: torch.Tensor     # scalar: sorted entries surviving the cull
     total: torch.Tensor        # scalar: pre-cap instance count
@@ -100,7 +103,11 @@ class Binned(NamedTuple):
     sort_keys: torch.Tensor | None  # [k_pad] int32 keys (SENTINEL = padding)
     num_instances: torch.Tensor  # scalar int32: real instances kept
     num_dropped: torch.Tensor    # scalar int32: instances lost to capacity
-    gauss_ends: torch.Tensor     # [n] min(cum, k_cap)
+    gauss_ends: torch.Tensor     # [n] exclusive end of each Gaussian's rows
+    #                              in `order` (min(cum, k_cap) without the
+    #                              sat cull)
+    order: torch.Tensor | None = None  # [kr] int32: row -> padded slot
+    #                              (k_pad = dropped); None without grad maps
 
 
 def shift_right_logical(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -361,6 +368,8 @@ def bin_raw(
 
     key = torch.where(keep, (tile_id << tile_shift) | gdkey,
                       torch.full_like(tile_id, SENTINEL))
+    # The sort's permutation is the raw slot of each sorted instance (the
+    # JAX package carries the slot through its sort as an extra operand).
     key_sorted, perm = torch.sort(key, stable=True)
     gidx_sorted = gidx_raw[perm]
 
@@ -369,6 +378,8 @@ def bin_raw(
     return RawBinned(
         key_sorted=key_sorted,
         gidx_sorted=gidx_sorted,
+        rawslot_sorted=perm.to(I32),
+        gidx_raw=gidx_raw,
         raw_starts=raw_starts,
         num_real=raw_starts[num_tiles],
         total=total,
@@ -461,11 +472,14 @@ def bin_gaussians(
     `k_pad` (0 = k_cap) sizes the padded layout independently of the raw
     capacity; `rb` reuses a precomputed bin_raw result; `sat_counts`
     ([num_tiles], satcull.satcount) clips each tile to its saturation
-    prefix, and clipped instances are not counted as dropped."""
-    if want_grad_maps:
-        raise NotImplementedError(
-            "the raw->padded order/gauss_ends maps for the training backward "
-            "are not ported yet; pass want_grad_maps=False")
+    prefix, and clipped instances are not counted as dropped.
+
+    `want_grad_maps` adds `order` and per-Gaussian `gauss_ends` for the
+    gather's backward. Without `sat_counts`, `order` has one row per raw slot
+    (Gaussian-grouped: Gaussian g owns rows [gauss_ends[g-1], gauss_ends[g]))
+    holding the padded slot it landed in, k_pad when it did not. With
+    `sat_counts` the rows are compacted to the landed instances, still in
+    raw order, over min(k_pad, k_cap) rows (the compact backward)."""
     n = means2d.shape[0]
     num_tiles = grid.num_tiles
     if k_pad <= 0:
@@ -485,11 +499,71 @@ def bin_gaussians(
         kept_target = rb.num_real
     num_dropped = rb.total - (rb.num_raw - rb.num_real) - (
         rb.num_real - kept_target) - num_kept
+    order = None
+    gauss_ends = torch.clamp(rb.cum, max=k_cap)
+    if want_grad_maps:
+        order, ends_c = _grad_maps(rb, padded_starts, grid, k_cap, k_pad,
+                                   n, sat_counts)
+        if ends_c is not None:
+            gauss_ends = ends_c
     return Binned(
         gidx=gidx_padded,
         tile_starts=padded_starts,
         sort_keys=keys_padded,
         num_instances=num_kept,
         num_dropped=num_dropped,
-        gauss_ends=torch.clamp(rb.cum, max=k_cap),
+        gauss_ends=gauss_ends,
+        order=order,
     )
+
+
+def _grad_maps(rb: RawBinned, padded_starts, grid: TileGrid, k_cap: int,
+               k_pad: int, n: int, sat_counts):
+    """The raw->padded slot map (`order`) and, under the sat cull, the
+    compact per-Gaussian ends (JAX binning.py:686-750).
+
+    Sorted position p of tile t lands at p + padded_starts[t] -
+    raw_starts[t] when it is a real instance inside the padded capacity and,
+    with `sat_counts`, inside its tile's kept prefix; else it is dropped
+    (k_pad). `rawslot_sorted` is a permutation, so `order` in raw order is
+    the scatter order[rawslot_sorted] = dest."""
+    dev = rb.key_sorted.device
+    num_tiles = grid.num_tiles
+    slot = torch.arange(k_cap, dtype=I32, device=dev)
+    bounds = rb.raw_starts[:-1].long()
+    inb = bounds < k_cap
+
+    def bcast(values):  # [T] per tile -> [k_cap] per sorted position
+        deltas = torch.cat([values[:1], values[1:] - values[:-1]])
+        z = torch.zeros((k_cap,), dtype=I32, device=dev)
+        z.index_add_(0, bounds[inb], deltas[inb])
+        return _cumsum_i32(z)
+
+    dest = slot + bcast(padded_starts[:-1] - rb.raw_starts[:-1])
+    landed = (slot < rb.num_real) & (dest < padded_starts[num_tiles])
+    if sat_counts is not None:
+        raw_counts = rb.raw_starts[1:] - rb.raw_starts[:-1]
+        kept = torch.minimum(raw_counts, sat_counts.to(I32))
+        # clipped tails would alias the next tile's padded range
+        landed = landed & (slot - bcast(rb.raw_starts[:-1]) < bcast(kept))
+    dest = torch.where(landed, dest, torch.full_like(dest, k_pad))
+    raw = rb.rawslot_sorted.long()
+    if sat_counts is None:
+        order = torch.empty_like(dest)
+        order[raw] = dest
+        return order, None
+    # Compact backward: the landed instances in raw order, over
+    # min(k_pad, k_cap) rows; Gaussian g's rows end at the number of landed
+    # instances of Gaussians <= g.
+    landed_raw = torch.zeros_like(landed)
+    landed_raw[raw] = landed
+    dest_raw = torch.empty_like(dest)
+    dest_raw[raw] = dest
+    kr = min(k_pad, k_cap)
+    row = _cumsum_i32(landed_raw.to(I32)) - 1
+    order = torch.full((kr,), k_pad, dtype=I32, device=dev)
+    order[row[landed_raw].long()] = dest_raw[landed_raw]
+    per_g = torch.zeros((n,), dtype=I32, device=dev)
+    per_g.index_add_(0, rb.gidx_raw[landed_raw].long(),
+                     torch.ones_like(row[landed_raw]))
+    return order, _cumsum_i32(per_g)

@@ -36,18 +36,26 @@ ALPHA_MIN = 1.0 / 255.0
 T_EPS = 1e-4
 
 
-def splat_alpha(px, py, mx, my, a, b, c, op):
-    """Spec alpha of splats at pixels (broadcasting): returns (alpha, valid)
-    with alpha = min(alpha_raw, 0.99) where valid (power <= 0 and alpha_raw
-    >= 1/255) else 0. The exponent is clamped at 0 before exp. Evaluated in
-    the spec's operation order, which the CUDA kernels (csrc/splat.cuh)
-    follow op for op."""
+def splat_terms(px, py, mx, my, a, b, c, op):
+    """Spec alpha of splats at pixels (broadcasting): returns (alpha, valid,
+    expp, alpha_raw) with expp = exp(min(power, 0)), alpha_raw = op * expp,
+    alpha = min(alpha_raw, 0.99), valid = power <= 0 and alpha_raw >= 1/255.
+    Evaluated in the spec's operation order, which the CUDA kernels
+    (csrc/splat.cuh) follow op for op."""
     dx = px - mx
     dy = py - my
     power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-    alpha_raw = op * torch.exp(torch.clamp(power, max=0.0))
+    expp = torch.exp(torch.clamp(power, max=0.0))
+    alpha_raw = op * expp
     valid = (power <= 0) & (alpha_raw >= ALPHA_MIN)
-    return torch.clamp(alpha_raw, max=ALPHA_CLAMP), valid
+    return torch.clamp(alpha_raw, max=ALPHA_CLAMP), valid, expp, alpha_raw
+
+
+def splat_alpha(px, py, mx, my, a, b, c, op):
+    """(alpha, valid) of `splat_terms`: alpha where valid, else callers
+    mask it to 0."""
+    alpha, valid, _, _ = splat_terms(px, py, mx, my, a, b, c, op)
+    return alpha, valid
 
 
 def blend_loop_np(

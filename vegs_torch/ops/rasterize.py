@@ -1,4 +1,4 @@
-"""Gaussian rasterization, forward (port of vegs_tpu/ops/rasterize.py).
+"""Gaussian rasterization (port of vegs_tpu/ops/rasterize.py).
 
 Pipeline: project (PyTorch) -> bin + sort (PyTorch index math) -> optional
 saturation prepass (kernel K4) -> padded relayout -> payload gather ->
@@ -8,9 +8,13 @@ Mixed-precision payload, as in the JAX package: an 8-column f32 table
 (pixel means, conic, opacity, depth) and a 16-column aux table (rgb, quat,
 scale) in bf16 (the default) or f32.
 
-Only the forward is ported: `forward_only=False` (the training path through
-the gather's segment-reduce backward and the blend backward) raises
-NotImplementedError until the backward slice.
+Gradients: PyTorch autograd differentiates everything around the kernels.
+The blend's backward is kernel K2 (`blend_cuda.BlendFn`); the payload
+gather's backward (`GatherExpand`) gathers the instance cotangents into raw
+(Gaussian-grouped) order by binning's `order` map and sums them per
+Gaussian with kernel K3 (`segreduce.segment_reduce_cols`). With
+`forward_only=True` binning skips those maps and the gather is a plain
+index, as for rendering.
 """
 
 from __future__ import annotations
@@ -43,7 +47,9 @@ class RasterizeConfig(NamedTuple):
     payload_dtype: str = "bf16"  # 'bf16' | 'f32' -- rgb/quat/scale payload
     blend_chunk: int = 256     # instances per blend batch; K1 stages
     #                            256 (binning.PAD_ALIGN), the only value
-    forward_only: bool = False  # must be True until the backward is ported
+    forward_only: bool = False  # skip the backward's binning maps (render
+    #                            only; gradients would then flow through a
+    #                            plain index's scatter-add)
     k_pad: int = 0             # padded-layout capacity (0 = k_cap)
     cull_compact: object = "auto"  # pre-assignment cull of small rects
     #                            ("auto" = on up to binning.COMPACT_MAX_N)
@@ -93,6 +99,52 @@ def assemble_dense_payload(pf: torch.Tensor, pa: torch.Tensor) -> torch.Tensor:
         [pf[:, :6], pa_f[:, 0:3], pf[:, 6:7], pa_f[:, 3:10]], dim=1).T
 
 
+def cotangent_columns(d_pf, d_pa, order, ends):
+    """Kernel K3's inputs from the cotangents of the gathered payload (d_pf
+    [8, k_pad] f32, d_pa [16, k_pad]): the [24, kr] f32 columns in raw
+    (Gaussian-grouped) order -- column r is slot `order[r]`, zero where the
+    row is dead (order >= k_pad), the aux half upcast -- and each
+    Gaussian's segment [starts, ends) of them."""
+    k = d_pf.shape[1]
+    dead = order >= k
+    idx = torch.where(dead, torch.zeros_like(order), order).long()
+    cols = torch.cat([d_pf[:, idx], d_pa[:, idx].to(torch.float32)])
+    cols = torch.where(dead[None, :], torch.zeros((), device=cols.device),
+                       cols).contiguous()
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    return cols, starts, ends.contiguous()
+
+
+class GatherExpand(torch.autograd.Function):
+    """Expand per-Gaussian payload tables to channel-major per-instance
+    rows (JAX `gather_expand`, rasterize.py:137-254).
+
+    pay_f32 [n+1, 8] f32, pay_aux [n+1, 16] (bf16 | f32), gidx [k_pad]
+    int32 -> ([8, k_pad] f32, [16, k_pad] aux dtype). `order` ([kr] int32:
+    raw row -> padded slot, k_pad = dead) and `ends` ([n+1] int32: exclusive
+    end of each Gaussian's rows) come from binning.
+
+    Backward: the cotangent columns in raw order (`cotangent_columns`)
+    summed per Gaussian by kernel K3; the aux gradient is cast back to the
+    aux dtype."""
+
+    @staticmethod
+    def forward(ctx, pay_f32, pay_aux, gidx, order, ends):
+        g = gidx.long()
+        ctx.aux_dtype = pay_aux.dtype
+        ctx.save_for_backward(order, ends)
+        return pay_f32[g].T.contiguous(), pay_aux[g].T.contiguous()
+
+    @staticmethod
+    def backward(ctx, d_pf, d_pa):
+        from .segreduce import segment_reduce_cols
+
+        order, ends = ctx.saved_tensors
+        out = segment_reduce_cols(*cotangent_columns(d_pf, d_pa, order, ends))
+        return (out[:F32_COLS].T, out[F32_COLS:].T.to(ctx.aux_dtype),
+                None, None, None)
+
+
 def _resolve_backend(config: RasterizeConfig, device: torch.device) -> str:
     backend = "cuda" if config.backend == "auto" else config.backend
     if backend not in ("dense", "cuda"):
@@ -138,11 +190,6 @@ def stage(
 ) -> Staged:
     """Project, bin, run the saturation prepass (K4) when it is on, lay out
     and gather the payload: every stage of `rasterize` before the blend."""
-    if not config.forward_only:
-        raise NotImplementedError(
-            "only the forward render is ported: the gather/blend backward "
-            "(kernels K2/K3) waits for the training slice; pass a "
-            "RasterizeConfig with forward_only=True")
     backend = _resolve_backend(config, means3d.device)
     H, W = cam.height, cam.width
     grid = binning.TileGrid.for_image(H, W, config.tile_h, config.tile_w)
@@ -201,14 +248,21 @@ def stage(
     binned = binning.bin_gaussians(
         m2d, dep, proj.radii_xy, grid, config.k_cap,
         conics=con, opacities=op,
-        want_keys=(backend == "dense"),
+        want_keys=(backend == "dense"), want_grad_maps=not config.forward_only,
         k_pad=config.k_pad, compact=compact, rb=rb, sat_counts=sat_counts)
 
-    gidx = binned.gidx.long()
+    if config.forward_only:
+        gidx = binned.gidx.long()
+        payload_f32 = pay_f32[gidx].T.contiguous()
+        payload_aux = pay_aux[gidx].T.contiguous()
+    else:
+        # the dummy row n gets an empty segment
+        ends = torch.cat([binned.gauss_ends, binned.gauss_ends[-1:]])
+        payload_f32, payload_aux = GatherExpand.apply(
+            pay_f32, pay_aux, binned.gidx, binned.order, ends)
     return Staged(proj=proj, grid=grid, backend=backend, rb=rb,
                   pf_sorted=pf_sorted, sat_counts=sat_counts, binned=binned,
-                  payload_f32=pay_f32[gidx].T.contiguous(),
-                  payload_aux=pay_aux[gidx].T.contiguous())
+                  payload_f32=payload_f32, payload_aux=payload_aux)
 
 
 def rasterize(
@@ -241,12 +295,21 @@ def rasterize(
     else:
         from . import blend_cuda
 
-        out_p = blend_cuda.blend(st.payload_f32, st.payload_aux,
-                                 binned.tile_starts, grid,
-                                 grid.padded_height, grid.padded_width)
+        out_p = blend_cuda.BlendFn.apply(st.payload_f32, st.payload_aux,
+                                         binned.tile_starts, grid,
+                                         grid.padded_height,
+                                         grid.padded_width)
         out = out_p[:, :H, :W]
+    return raster_out(st, out, bg)
 
-    bg = torch.zeros(3, dtype=means3d.dtype, device=means3d.device) if bg is None else bg
+
+def raster_out(st: Staged, out: torch.Tensor,
+               bg: Optional[torch.Tensor] = None) -> RasterOut:
+    """The blend's output [12, H, W] (cropped to the image) and the stages'
+    records -> RasterOut, with the background `bg` ([3], default black)
+    composited behind the rgb."""
+    if bg is None:
+        bg = torch.zeros(3, dtype=out.dtype, device=out.device)
     t_fin = out[blend_ref.N_ACCUM]
     rgb = out[0:3] + t_fin[None] * bg[:, None, None]
 
@@ -258,7 +321,7 @@ def rasterize(
         alpha=1.0 - t_fin[None],
         radii=st.proj.radii,
         means2d=st.proj.means2d,
-        num_dropped=binned.num_dropped,
-        num_needed=binned.tile_starts[-1],
+        num_dropped=st.binned.num_dropped,
+        num_needed=st.binned.tile_starts[-1],
         num_needed_raw=st.rb.total,
     )

@@ -1,5 +1,7 @@
 """Renderer API over the rasterizer (port of vegs_tpu/render.py, static
-field only; render_dyn/render_all with dynamic boxes wait)."""
+field only; render_dyn/render_all with dynamic boxes wait). `_run` is the
+training step's entry: it renders prepared field arrays with a means2d
+gradient tap."""
 
 from __future__ import annotations
 
@@ -40,6 +42,16 @@ def field_arrays(field: GaussianField, active_sh_degree: int = 3) -> FieldArrays
         shs=field.features() * mask,
         valid=field.valid,
     )
+
+
+def _run(camera, arrays: FieldArrays, *, bg, scale_modifier, override_color,
+         sh_degree, config, means2d_offset) -> RasterOut:
+    cam = _as_cam_params(camera, arrays.means.device)
+    return rasterize(
+        arrays.means, arrays.quats, arrays.scales, arrays.opacities,
+        arrays.shs, cam, colors_precomp=override_color, sh_degree=sh_degree,
+        bg=bg, scale_modifier=scale_modifier, valid=arrays.valid,
+        means2d_offset=means2d_offset, config=config)
 
 
 def render(

@@ -3,9 +3,10 @@
 
 Weights-only PLY snapshots in the reference's attribute layout: a PLY
 written by the JAX package's `save_gaussian_ply` loads here unchanged, and
-the other way round. A Scene is built from a given SceneInfo and a trained
-iteration; the dataset loaders, initialisation from points and the dynamic
-box fields wait for later slices.
+the other way round. A Scene is built from a given SceneInfo, with the
+static field of a trained iteration or seeded from the SceneInfo's point
+cloud (`create_from_points`); the dataset loaders and the dynamic box
+fields wait for later slices.
 """
 
 from __future__ import annotations
@@ -69,8 +70,10 @@ def load_gaussian_ply(path, capacity: Optional[int] = None,
 
 
 class Scene:
-    """Cameras of a SceneInfo + the static field of a trained iteration
-    (`model_path/point_cloud/iteration_<i>/point_cloud.ply`; -1 = latest)."""
+    """Cameras of a SceneInfo + the static field: that of a trained
+    iteration (`model_path/point_cloud/iteration_<i>/point_cloud.ply`; -1 =
+    latest), or with `load_iteration=None` one seeded from the SceneInfo's
+    point cloud."""
 
     def __init__(
         self,
@@ -82,11 +85,6 @@ class Scene:
         resolution: int = -1,
         device=None,
     ):
-        if load_iteration is None:
-            raise NotImplementedError(
-                "initialising a field from the scene's points "
-                "(create_from_points) waits for the training slice; pass the "
-                "trained iteration to load")
         if scene_info.instances_info:
             raise NotImplementedError(
                 "dynamic box instances are not ported yet")
@@ -106,11 +104,17 @@ class Scene:
         ]
         self.train_bboxes = scene_info.train_bboxes
         self.test_bboxes = scene_info.test_bboxes
-        self.loaded_iter = self._resolve_iteration(load_iteration)
-        self.gaussians = load_gaussian_ply(
-            Path(self.model_path) / "point_cloud"
-            / f"iteration_{self.loaded_iter}" / "point_cloud.ply",
-            device=self.device)
+        self.loaded_iter = None
+        if load_iteration is None:
+            pcd = scene_info.point_cloud
+            self.gaussians = gaussians.create_from_points(
+                pcd.points, pcd.colors, device=self.device)
+        else:
+            self.loaded_iter = self._resolve_iteration(load_iteration)
+            self.gaussians = load_gaussian_ply(
+                Path(self.model_path) / "point_cloud"
+                / f"iteration_{self.loaded_iter}" / "point_cloud.ply",
+                device=self.device)
 
     def _resolve_iteration(self, load_iteration: int) -> int:
         if load_iteration != -1:
@@ -123,3 +127,6 @@ class Scene:
 
     def getTrainCameras(self) -> list[Camera]:
         return self.train_cameras
+
+    def getTestCameras(self) -> list[Camera]:
+        return self.test_cameras

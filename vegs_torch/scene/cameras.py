@@ -1,8 +1,9 @@
 """Host-side camera objects (port of vegs_tpu/scene/cameras.py, subset).
 
 All pose math is numpy on the host; `device_params(device)` produces the
-port's CameraParams. Lazy image loading (PIL), normal maps and the random
-diffusion-guidance augmentation wait for later slices.
+port's CameraParams. Images and normal maps are those held in memory; lazy
+loading from disk (PIL) and the random diffusion-guidance augmentation wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -81,6 +82,30 @@ class Camera:
         ).T
         self.full_proj_transform = self.world_view_transform @ self.projection_matrix
         self.camera_center = np.linalg.inv(self.world_view_transform)[3, :3]
+
+    @property
+    def original_image(self) -> np.ndarray:
+        if self.image is None:
+            raise NotImplementedError(
+                f"camera {self.image_name!r} holds no image; loading images "
+                "from disk is not ported yet")
+        return self.image
+
+    @property
+    def original_normal(self) -> Optional[np.ndarray]:
+        if self.normal is None and self.normal_path:
+            raise NotImplementedError("loading normal maps from disk is not "
+                                      "ported yet")
+        return self.normal
+
+    def world_normal(self) -> Optional[np.ndarray]:
+        """Camera-space prior normals rotated to world space (None without
+        a normal map)."""
+        n = self.original_normal
+        if n is None:
+            return None
+        flat = n.reshape(3, -1).T @ self.R.T
+        return flat.T.reshape(n.shape)
 
     def device_params(self, device=None) -> CameraParams:
         dev = resolve_device(device)

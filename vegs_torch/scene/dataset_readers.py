@@ -1,8 +1,9 @@
 """Scene/dataset records (port of vegs_tpu/scene/dataset_readers.py, subset).
 
 The CameraInfo/SceneInfo containers, the FoV helpers, the nerf++
-normalization and `camera_from_info`. The KITTI-360, KITTI, COLMAP and
-Blender loaders wait for a later slice.
+normalization, `camera_from_info` and the random virtual rig
+(`generateRandomCameras`). The KITTI-360, KITTI, COLMAP and Blender
+loaders wait for a later slice.
 """
 
 from __future__ import annotations
@@ -74,6 +75,44 @@ def getNerfppNorm(cam_infos, pcd: Optional[BasicPointCloud] = None) -> dict:
     center = np.mean(centers, axis=1, keepdims=True)
     diagonal = np.max(np.linalg.norm(centers - center, axis=0))
     return {"translate": -center.flatten(), "radius": diagonal * 1.1}
+
+
+def generateRandomCameras(n_views, elevation_deg=0.0, camera_distance=2.0,
+                          fov=45.0, width=256, height=256,
+                          rng: np.random.Generator | None = None) -> list[CameraInfo]:
+    """`n_views` cameras on a circle around the origin, looking at it, at
+    jittered azimuths (the reference's random virtual rig)."""
+    rng = rng or np.random.default_rng(0)
+    azimuth = (np.linspace(0, 360, n_views + 1)[:-1]
+               + rng.random(n_views) * 360.0 / n_views)
+    azimuth = np.deg2rad(azimuth)
+    elev = np.deg2rad(np.full_like(azimuth, elevation_deg))
+    centers = np.stack([
+        camera_distance * np.cos(elev) * np.cos(azimuth),
+        camera_distance * np.cos(elev) * np.sin(azimuth),
+        camera_distance * np.sin(elev),
+    ], axis=-1)
+    fov_rad = np.deg2rad(fov)
+    infos = []
+    for i, c in enumerate(centers):
+        forward = -c / np.linalg.norm(c)               # look at the origin
+        up = np.array([0.0, 0.0, 1.0])
+        right = np.cross(forward, up)
+        right /= np.linalg.norm(right)
+        down = np.cross(forward, right)
+        R_w2c = np.stack([right, down, forward], axis=0)
+        T = -R_w2c @ c
+        K = np.array([
+            [fov2focal(fov_rad, width), 0, width / 2],
+            [0, fov2focal(fov_rad, height), height / 2],
+            [0, 0, 1],
+        ])
+        infos.append(CameraInfo(
+            uid=i, R=R_w2c.T, T=T, FovY=fov_rad, FovX=fov_rad,
+            image=None, image_path="", image_name=f"random_{i:03d}",
+            width=width, height=height, K=K,
+        ))
+    return infos
 
 
 def camera_from_info(info: CameraInfo, preload: bool = False,

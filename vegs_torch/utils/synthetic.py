@@ -1,6 +1,7 @@
 """Synthetic street camera rigs (numpy copy of the camera arc of
-vegs_tpu/utils/synthetic.py). The ray-traced ground truth of that module
-waits for the training slice, so the records carry no images."""
+vegs_tpu/utils/synthetic.py) and a synthetic normal map. The ray-traced
+ground truth of that module is not ported: the records carry no images, and
+callers render their own ground truth."""
 
 from __future__ import annotations
 
@@ -41,3 +42,17 @@ def street_camera_infos(n: int, H: int, W: int, fovx=1.2, fovy=0.7,
                 normal=None, normal_path="", width=W, height=H, frame=i))
             uid += 1
     return infos
+
+
+def unit_normal_map(H: int, W: int, seed: int = 0) -> np.ndarray:
+    """A smooth synthetic camera-space normal map [3, H, W] of unit vectors
+    (a tilted plane with seeded low-frequency ripples), for training steps
+    that exercise the normal-guidance loss without a normal prior."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    fx, fy, ph = rng.uniform(0.5, 2.0), rng.uniform(0.5, 2.0), rng.uniform(0, 6.3)
+    nx = 0.3 * np.sin(2 * np.pi * fx * x / W + ph)
+    ny = -0.8 + 0.2 * np.cos(2 * np.pi * fy * y / H)
+    nz = -np.ones_like(x)
+    n = np.stack([nx, ny, nz]).astype(np.float32)
+    return n / np.linalg.norm(n, axis=0, keepdims=True)
