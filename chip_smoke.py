@@ -42,7 +42,18 @@ Phases, one JSON line each; any failure exits non-zero:
                  tap) through the kernels on the card against the plain
                  versions on the CPU, on a reduced scene (128x512, 50k
                  Gaussians, bf16 aux);
- 10. the kernels summary line, then the card line, then the last line
+ 10. perf     -- the measurement path (`vegs_torch.perf`), after the train
+                 phase's tensors are freed: M1 (block sum) and M2
+                 (transpose) against their plain versions at the probes'
+                 full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
+                 both layouts), with card, plain, library times and
+                 bounds (m1_check, m2_check); then, with every launch
+                 counter set to 0, the eight layout probes (micro3), the
+                 stage split at 2,233,571 Gaussians, 376x1408, 16x16
+                 tiles, sat cull on (refscale), and each stage's bound and
+                 share of its time (roofline); every kernel must have
+                 launched in this path;
+ 11. the kernels summary line, then the card line, then the last line
      {"ok": true, "device": {...}}.
 
 Tolerances: K4 counts must agree (a tile may differ only by exactly one
@@ -64,13 +75,16 @@ instance's group (its tile's 256-instance batch), plus one bf16 ulp (2^-7
 after each tile's first 256. K3: |d| <= 1e-5 * (sum of |x| over the
 segment) -- the plain version adds with atomics in any order on the card;
 control: each segment's last column left out. Step gradients: relative L2
-error <= 1e-4 per leaf; control: K2's f32 rows rounded to bf16.
+error <= 1e-4 per leaf; control: K2's f32 rows rounded to bf16. M2 must be
+bit-identical to its plain version. M1: |d| <= 1e-8 * (sum of |x|) -- the
+kernel and its plain version add in other orders; the sound readings on an
+H100 are at most 1.3e-10; control: the sum with the last 2^17-long block
+left out.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -85,25 +99,10 @@ N_REF = 2_233_571            # the reference's recorded scene size
 SEED = 0
 PROBE_CAP = (1 << 23) - 512  # raw capacity of the sizing probe
 
-# Peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and fp32 rate
-# outside the tensor cores, for the bound of each kernel.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# fp32 operations (an FMA is two, exp and log1p one each) per (pixel,
-# instance) pair, by how far the walk takes the pair; the plain versions
-# count this run's pairs of each kind (their `pairs` record):
-#   walked   -- alpha (csrc/splat.cuh splat_alpha): offsets 2, quadratic
-#               form 9, clamp/exp/opacity 3, the two tests, clamp and zero
-#               test 4;
-#   tested   -- alpha > 0: T from log T 2, the stop test 3;
-#   included -- K1: the weight 1, 11 channel FMAs 22, the log-T update 4;
-#               K4: the log-T update 4.
-#   included -- K2: the weight 1, dw 22, the suffix sum 2, dL 1, dalpha 4,
-#               the clamp test and dpower 2, six monomials 6, dop 1, eleven
-#               channel products 11, the log-T update 4, and the 18 values
-#               summed over the tile's pixels 18.
-OPS_WALKED, OPS_TESTED = 18, 5
-OPS_INCLUDED = {"K1": 27, "K2": 72, "K4": 4}
+# Each kernel's bound (vegs_torch/perf/roofline.py): the larger of the
+# bytes its inputs and outputs move once at 3.35 TB/s and the fp32
+# operations these inputs need at 67 TFLOP/s, counted with the plain
+# versions' `pairs` record of this run.
 
 K1_ATOL, K1_RTOL, MAX_FLIP_SHARE = 1e-5, 1e-4, 1e-3
 K2_RTOL = 1e-4
@@ -115,6 +114,7 @@ BF16_ULP, K2_MAX_FLIP_TILES = 2.0 ** -7, 0.01
 K3_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 CONTROL_ERR = 0.01  # the K2 control's error on the deep instances
+M1_RTOL = 1e-8
 
 # Iterations 3001-3008 (SH degree 3 active); the one densify-and-prune
 # event falls at 3008, after that step's loss, so the losses compare the
@@ -129,43 +129,6 @@ def emit(phase: str, **kw) -> None:
 
 def r512(v: float) -> int:
     return (int(v) + 511) // 512 * 512
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
-
-
-def random_gaussians(rng, n, depth_range, xy_extent, scale_range,
-                     opacity_range=(0.2, 0.95)):
-    """Random cloud in front of a camera at the origin looking down +z
-    (the distribution of the JAX package's tests/utils.py)."""
-    means = np.stack([
-        rng.uniform(-xy_extent, xy_extent, n),
-        rng.uniform(-xy_extent * 0.6, xy_extent * 0.6, n),
-        rng.uniform(*depth_range, n)], axis=1).astype(np.float32)
-    quats = rng.normal(size=(n, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
-    scales = rng.uniform(*scale_range, (n, 3)).astype(np.float32)
-    opac = rng.uniform(*opacity_range, n).astype(np.float32)
-    shs = np.zeros((n, 16, 3), np.float32)
-    shs[:, 0] = rng.uniform(-1.0, 1.5, (n, 3))
-    shs[:, 1:] = rng.normal(0, 0.12, (n, 15, 3))
-    return means, quats, scales, opac, shs
-
-
-def origin_camera(h, w, fovx, fovy, device):
-    from vegs_torch import geometry
-    from vegs_torch.convert import camera_params_from_numpy
-
-    view = geometry.world_to_view(np.eye(3), np.zeros(3))
-    full = geometry.projection_matrix(0.01, 100.0, fovx, fovy) @ view
-    return camera_params_from_numpy(
-        view.T, full.T, np.linalg.inv(view)[:3, 3], np.tan(fovx * 0.5),
-        np.tan(fovy * 0.5), h, w, device=device)
 
 
 def field_stage(field, cam, cfg):
@@ -228,20 +191,6 @@ def compare_k1(st):
     if n_flips > MAX_FLIP_SHARE * hp * wp:
         raise AssertionError(f"K1: {n_flips} stop-index flips: {res}")
     return res
-
-
-def cuda_ms(fn, iters=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(iters):
-        fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / iters
 
 
 KERNEL_GROUPS = (("K1 blend_fwd", ("blend_fwd_kernel",)),
@@ -482,6 +431,7 @@ def grad_check(dev, n=50_000, seed=SEED):
     from vegs_torch import convert
     from vegs_torch.config import VegsConfig
     from vegs_torch.ops.rasterize import RasterizeConfig
+    from vegs_torch.perf.refscale import origin_camera
     from vegs_torch.train import loss_fn
     from vegs_torch.utils.synthetic import unit_normal_map
 
@@ -691,6 +641,121 @@ def write_field_ply(path: Path, n: int, seed: int) -> None:
     save_gaussian_ply(path, field)
 
 
+def kernel_times(kernel, plain, library) -> dict:
+    """The card's own ms per call (torch.profiler: the summed durations of
+    the device operations each call launches, without host gaps) of a
+    kernel's wrapper, its plain version and the library call, and the
+    kernel's stream ms (CUDA events, host gaps included). A kernel of a few
+    tens of microseconds behind a Python wrapper is timed by the former:
+    between launches the stream waits on the host."""
+    from vegs_torch.perf.timing import (DEVICE_OVER_STREAM, cuda_ms,
+                                        device_profile)
+
+    t = {"ms": device_profile(kernel)["device_ms"],
+         "stream_ms": cuda_ms(kernel),
+         "plain_ms": device_profile(plain)["device_ms"],
+         "library_ms": device_profile(library)["device_ms"]}
+    if t["ms"] > DEVICE_OVER_STREAM * t["stream_ms"]:
+        raise AssertionError(f"device time over stream time: {t}")
+    return t
+
+
+def m2_check(data, card) -> dict:
+    """M2 against its plain version on the probes' inputs ([K, 8] f32,
+    [K, 16] bf16): bit-identical; card, plain, library (x.t().contiguous())
+    and bound times. Returns the f32 case's line."""
+    from vegs_torch.perf import micro3, roofline
+
+    lines = []
+    for name, x in (("f32", data.a8), ("bf16", data.a16)):
+        got = micro3.transpose(x)
+        ref = micro3.transpose_ref(x)
+        bits = torch.int32 if x.element_size() == 4 else torch.int16
+        ident = bool(torch.equal(got.view(bits), ref.view(bits)))
+        b_ms, by = roofline.bound_ms(
+            roofline.Work(2 * x.numel() * x.element_size(), 0))
+        line = {"dtype": name, "shape": list(x.shape), "bit_identical": ident,
+                "max_abs_err": float((got.float() - ref.float()).abs().max()),
+                **kernel_times(lambda: micro3.transpose(x),
+                               lambda: micro3.transpose_ref(x),
+                               lambda: x.t().contiguous()),
+                "bound_ms": b_ms, "bound_by": by}
+        emit("m2_check", card=card, **line)
+        if not ident:
+            raise AssertionError(f"M2 differs from its plain version: {line}")
+        lines.append(line)
+    return lines[0]
+
+
+def m1_check(data, card) -> dict:
+    """M1 against its plain version on the probes' inputs, f32 and bf16,
+    [K, C] and [C, K]: |d| <= M1_RTOL * sum|x|, the control (the last
+    2^17-long block left out) outside it, two runs bit-identical; card,
+    plain, library (torch.sum in f32) and bound times. Returns the f32
+    [K, C] case's line, with the largest |d| of all cases."""
+    from vegs_torch.perf import micro3, roofline
+
+    lines = []
+    for name, x in (("f32", data.a8), ("bf16", data.a16)):
+        for layout, y in (("[K, C]", x), ("[C, K]", x.t().contiguous())):
+            got = micro3.psum_consume(y)
+            again = micro3.psum_consume(y)
+            parts = micro3.psum_parts_ref(y)
+            ref = float(parts.sum())
+            mag = float(y.float().abs().sum())
+            d = abs(float(got) - ref)
+            b_ms, by = roofline.bound_ms(roofline.Work(
+                y.numel() * y.element_size(), y.numel()))
+            line = {"dtype": name, "layout": layout, "shape": list(y.shape),
+                    "value": float(got), "plain_value": ref, "abs_sum": mag,
+                    "max_abs_err": d, "reading": d / mag,
+                    "control_reading": abs(float(parts[:-1].sum()) - ref) / mag,
+                    "limit": M1_RTOL,
+                    "repeatable": bool(torch.equal(got, again)),
+                    **kernel_times(
+                        lambda: micro3.psum_consume(y),
+                        lambda: micro3.psum_consume_ref(y),
+                        lambda: torch.sum(y, dtype=torch.float32)),
+                    "bound_ms": b_ms, "bound_by": by}
+            emit("m1_check", card=card, **line)
+            hold(f"M1 {name} {layout}", line["reading"], M1_RTOL,
+                 line["control_reading"])
+            if not line["repeatable"]:
+                raise AssertionError(f"M1 differs between two runs: {line}")
+            lines.append(line)
+    return {**lines[0], "max_abs_err": max(ln["max_abs_err"] for ln in lines)}
+
+
+def perf_phase(dev, card) -> dict:
+    """The measurement path (see phase 10). Returns the M1 and M2 check
+    lines and the launches of every kernel in the path."""
+    from vegs_torch.ops import blend_cuda, satcull, segreduce
+    from vegs_torch.perf import micro3, refscale, roofline
+
+    t0 = time.perf_counter()
+    data = micro3.make_data(dev)
+    res = {"M2": m2_check(data, card), "M1": m1_check(data, card)}
+    counters = {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
+                "K3": segreduce.segment_reduce_cols, "K4": satcull.satcount,
+                "M1": micro3.psum_consume, "M2": micro3.transpose}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    micro3.run(device=dev, data=data,
+               emit=lambda **kw: emit("micro3", **kw))
+    del data
+    rs = refscale.run(device=dev, work=True,
+                      emit=lambda **kw: emit("refscale", **kw))
+    res["launches"] = {k: c.launches for k, c in counters.items()}
+    roofline.table(rs, emit=lambda **kw: emit("roofline", **kw))
+    emit("perf", launches=res["launches"], counts=rs["counts"],
+         seconds=time.perf_counter() - t0, card=card)
+    missing = [k for k, v in res["launches"].items() if not v]
+    if missing:
+        raise AssertionError(f"the perf path never launched {missing}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -707,6 +772,9 @@ def main() -> int:
     from vegs_torch.ops import blend_cuda, satcull
     from vegs_torch.ops.rasterize import (RasterizeConfig,
                                           SAT_MIN_SLOTS_PER_TILE, stage)
+    from vegs_torch.perf import roofline
+    from vegs_torch.perf.refscale import origin_camera, random_gaussians
+    from vegs_torch.perf.timing import card_line, cuda_ms
     from vegs_torch.render import render
     from vegs_torch.render_video import (DEFAULT_AUG_PARAMS, interpolate_cameras,
                                          render_frames)
@@ -861,27 +929,18 @@ def main() -> int:
         k4_ms = cuda_ms(lambda: satcull.satcount(st.pf_sorted,
                                                  st.rb.raw_starts, grid))
         # bounds: the work this frame's inputs need, from the plain
-        # versions' records -- bytes moved once at 3.35 TB/s (the rows each
-        # kernel uses of the instances up to each tile's farthest stop,
-        # the ranges, the output) vs operations at 67 TFLOP/s
+        # versions' records
         k1_pairs, k4_pairs = {}, {}
         blend_cuda.blend_ref_tiles(st.payload_f32, st.payload_aux, ts, grid,
                                    hp, wp, pairs=k1_pairs)
         satcull.satcount_ref(st.pf_sorted, st.rb.raw_starts, grid,
                              pairs=k4_pairs)
-        k1_bytes = (k1_pairs["slots"] * (7 * 4 + 10 * st.payload_aux.element_size())
-                    + 4 * (grid.num_tiles + 1) + 12 * 4 * hp * wp)
-        k4_bytes = k4_pairs["slots"] * 6 * 4 + 4 * (2 * grid.num_tiles + 1)
+        k1_bytes, k1_ops = roofline.k1_work(
+            k1_pairs, st.payload_aux.element_size(), grid.num_tiles, hp, wp)
+        k4_bytes, k4_ops = roofline.k4_work(k4_pairs, grid.num_tiles)
 
-    def bound(nbytes, pairs, kernel):
-        ops = (pairs["walked"] * OPS_WALKED + pairs["tested"] * OPS_TESTED
-               + pairs["included"] * OPS_INCLUDED[kernel])
-        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        o_ms = ops / PEAK_F32_PER_S * 1e3
-        return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations"), ops
-
-    k1_bound, k1_by, k1_ops = bound(k1_bytes, k1_pairs, "K1")
-    k4_bound, k4_by, k4_ops = bound(k4_bytes, k4_pairs, "K4")
+    k1_bound, k1_by = roofline.bound_ms(roofline.Work(k1_bytes, k1_ops))
+    k4_bound, k4_by = roofline.bound_ms(roofline.Work(k4_bytes, k4_ops))
     emit("timing", card=card, kind=kind,
          ms_per_frame=main_s / n_frames * 1e3,
          k1_ms=k1_ms, k4_ms=k4_ms,
@@ -916,10 +975,9 @@ def main() -> int:
     k2_ms = cuda_ms(lambda: blend_cuda.blend_bwd(*k2_args))
     pf, pa, ts2, out2, dout2, grid2 = k2_args
     hp2, wp2 = grid2.padded_height, grid2.padded_width
-    k2_bytes = (k2["pairs"]["slots"] * (7 * 4 + 10 * pa.element_size())
-                + pf.shape[1] * (8 * 4 + 16 * pa.element_size())
-                + 2 * 12 * 4 * hp2 * wp2 + 4 * (grid2.num_tiles + 1))
-    k2_bound, k2_by, k2_ops = bound(k2_bytes, k2["pairs"], "K2")
+    k2_bytes, k2_ops = roofline.k2_work(k2["pairs"], pa.element_size(),
+                                        pf.shape[1], grid2.num_tiles, hp2, wp2)
+    k2_bound, k2_by = roofline.bound_ms(roofline.Work(k2_bytes, k2_ops))
     emit("k2_check", scene="376x1408, 2,233,571 Gaussians, first train step",
          aux=str(pa.dtype), card=card, ms=k2_ms, bound_ms=k2_bound,
          bound_by=k2_by, ops=k2_ops, bytes=k2_bytes,
@@ -942,13 +1000,8 @@ def main() -> int:
     lib_err = float((lib - segreduce.segment_reduce_cols(*k3_args)).abs().max())
     k3_lib_ms = cuda_ms(lambda: torch.segment_reduce(
         data, "sum", lengths=lengths, axis=1))
-    k3_bytes = 4 * (cols.shape[0] * (total + starts.shape[0])
-                    + 2 * starts.shape[0])
-    k3_ops = cols.shape[0] * total
-    k3_b_ms = k3_bytes / PEAK_BYTES_PER_S * 1e3
-    k3_o_ms = k3_ops / PEAK_F32_PER_S * 1e3
-    k3_bound = max(k3_b_ms, k3_o_ms)
-    k3_by = "bytes" if k3_b_ms >= k3_o_ms else "operations"
+    k3_bytes, k3_ops = roofline.k3_work(cols.shape[0], total, starts.shape[0])
+    k3_bound, k3_by = roofline.bound_ms(roofline.Work(k3_bytes, k3_ops))
     emit("k3_check", scene="376x1408, 2,233,571 Gaussians, first train step",
          card=card, ms=k3_ms, library_ms=k3_lib_ms, library_max_abs_err=lib_err,
          bound_ms=k3_bound, bound_by=k3_by, bytes=k3_bytes, ops=k3_ops,
@@ -962,8 +1015,15 @@ def main() -> int:
     hold("step gradients", grad["reading"], GRAD_RTOL,
          grad["control_reading"])
 
-    # -- 10. summary ---------------------------------------------------------
+    # -- 10. the measurement path, on a card freed of the earlier phases ----
+    del scene, views, frames, st, on, off
+    torch.cuda.empty_cache()
+    perf = perf_phase(dev, card)
+
+    # -- 11. summary ---------------------------------------------------------
     launches = {**train["launches"]}
+    m1, m2 = perf["M1"], perf["M2"]
+    perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
          "source": "vegs_torch/csrc/blend_fwd.cu",
@@ -997,6 +1057,24 @@ def main() -> int:
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
+        {"name": "M1 blocksum", "route": "cuda",
+         "source": "vegs_torch/csrc/blocksum.cu",
+         "replaces": "perf/micro3_r02.py:56",
+         "launches": perf["launches"]["M1"], "launched_by": perf_only,
+         "matches_plain": True, "max_abs_err": m1["max_abs_err"],
+         "case": f"{m1['dtype']} {m1['layout']}",
+         "ms": m1["ms"], "plain_ms": m1["plain_ms"],
+         "bound_ms": m1["bound_ms"], "bound_by": m1["bound_by"],
+         "library_ms": m1["library_ms"]},
+        {"name": "M2 transpose", "route": "cuda",
+         "source": "vegs_torch/csrc/transpose.cu",
+         "replaces": "perf/micro3_r02.py:107",
+         "launches": perf["launches"]["M2"], "launched_by": perf_only,
+         "matches_plain": True, "max_abs_err": m2["max_abs_err"],
+         "case": m2["dtype"],
+         "ms": m2["ms"], "plain_ms": m2["plain_ms"],
+         "bound_ms": m2["bound_ms"], "bound_by": m2["bound_by"],
+         "library_ms": m2["library_ms"]},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

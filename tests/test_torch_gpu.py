@@ -9,7 +9,8 @@ Tolerances as in chip_smoke.py: K4 counts equal (a tile may differ by
 exactly one 256-slot window); K1 |d| <= 1e-5 + 1e-4 |ref| outside pixels
 whose stop index differs, those at most 0.1% of the pixels; K2 and K3 and
 the training step's gradients as stated in their tests, each limit set
-from the readings on an H100 (PERF.md).
+from the readings on an H100 (PERF.md); M2 bit-identical to its plain
+version; M1 within 1e-8 of the sum of |x|.
 
 The card's machine has no JAX, and tests/conftest.py imports it, so run
 this file there with `--noconftest`.
@@ -304,3 +305,57 @@ def test_ssim_means_grad_rms_stable_across_resolution(cuda):
         assert torch.isfinite(means.grad).all()
         rms.append(float(means.grad.square().mean().sqrt()))
     assert rms[0] > 0 and 0.1 < rms[1] / rms[0] < 10.0, rms
+
+
+M1_RTOL = 1e-8  # M1 against its plain version, of the sum of |x|
+
+
+def _probe_input(cuda, k, c, dtype, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return torch.randn((k, c), generator=g, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.bfloat16, 16),
+                                     (torch.float32, 3), (torch.bfloat16, 64)])
+def test_transpose_kernel_bit_identical(cuda, dtype, c):
+    """M2 copies bits: [K, C] -> [C, K] equal to x.t().contiguous()."""
+    from vegs_torch.perf import micro3
+
+    x = _probe_input(cuda, 1 << 16, c, dtype)
+    n0 = micro3.transpose.launches
+    got = micro3.transpose(x)
+    assert micro3.transpose.launches == n0 + 1
+    bits = torch.int32 if x.element_size() == 4 else torch.int16
+    assert torch.equal(got.view(bits), micro3.transpose_ref(x).view(bits))
+
+
+@pytest.mark.parametrize("layout", ["KC", "CK"])
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.bfloat16, 16)])
+def test_blocksum_kernel_matches_plain(cuda, dtype, c, layout):
+    """M1 within 1e-8 of sum|x| of its plain version (the block sums); the
+    control -- the last 2^17-long block left out -- outside that limit;
+    two runs give the same bits."""
+    from vegs_torch.perf import micro3
+
+    x = _probe_input(cuda, 1 << 18, c, dtype, seed=1)
+    y = x if layout == "KC" else x.t().contiguous()
+    n0 = micro3.psum_consume.launches
+    got = micro3.psum_consume(y)
+    assert micro3.psum_consume.launches == n0 + 1
+    parts = micro3.psum_parts_ref(y)
+    ref = float(parts.sum())
+    mag = float(y.float().abs().sum())
+    reading = abs(float(got) - ref) / mag
+    control = abs(float(parts[:-1].sum()) - ref) / mag
+    print(f"M1 {dtype} {layout}: reading {reading}, control {control}")
+    assert reading <= M1_RTOL < control
+    assert torch.equal(got, micro3.psum_consume(y))
+
+
+def test_probe_kernels_refuse_misaligned_input(cuda):
+    from vegs_torch.perf import micro3
+
+    x = torch.zeros((1 << 17) * 8 + 1, device=cuda)[1:].view(1 << 17, 8)
+    for fn in (micro3.psum_consume, micro3.transpose):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(x)

@@ -199,7 +199,8 @@ def test_port_imports_neither_jax_nor_vegs_tpu():
     assert len(loaded) >= 25
     for m in ("train", "optim", "densify", "config", "losses.photometric",
               "losses.normal_guidance", "ops.segreduce", "ops.blend_cuda",
-              "ops.rasterize", "scene.dataset_readers"):
+              "ops.rasterize", "scene.dataset_readers", "perf.micro3",
+              "perf.refscale", "perf.roofline", "perf.timing"):
         assert f"vegs_torch.{m}" in loaded, m
 
 

@@ -24,7 +24,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vegs_torch"
 
 # library name -> source file (each includes the shared headers in csrc/)
 SOURCES = {"blend_fwd": "blend_fwd.cu", "blend_bwd": "blend_bwd.cu",
-           "satcount": "satcount.cu", "segreduce": "segreduce.cu"}
+           "satcount": "satcount.cu", "segreduce": "segreduce.cu",
+           "blocksum": "blocksum.cu", "transpose": "transpose.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -35,6 +35,7 @@ from .blend_ref import ALPHA_CLAMP, N_ACCUM, OUT_CHANNELS, T_EPS, splat_terms
 F32_ROWS = 8    # payload_f32 rows
 AUX_ROWS = 16   # payload_aux rows
 NEG_CAP = -80.0
+BWD_MAX_PIXELS = 256  # K2 stages one tile's pixels per block, at most 256
 
 
 def _chan_rows(payload_f32: torch.Tensor, payload_aux: torch.Tensor):
@@ -304,9 +305,9 @@ blend.launches = 0  # K1 launches: incremented where the kernel is launched
 def _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout, grid):
     _contiguous(payload_f32, payload_aux, tile_starts, out, dout)
     p = grid.tile_h * grid.tile_w
-    if p > 256 or p % 32:
+    if p > BWD_MAX_PIXELS or p % 32:
         raise ValueError("the blend backward needs tile_h * tile_w a "
-                         "multiple of 32, <= 256")
+                         f"multiple of 32, <= {BWD_MAX_PIXELS}")
     fn = kernels.load("blend_bwd").vegs_blend_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
