@@ -6,9 +6,11 @@ Phases, one JSON line each; any failure exits non-zero:
   1. device   -- a CUDA card is present (prints nvidia-smi's name and power
                  limit);
   2. build    -- nvcc builds kernels K1 (blend forward), K2 (blend
-                 backward), K3 (segment reduce) and K4 (saturation count)
-                 from vegs_torch/csrc, in parallel; ptxas registers and
-                 shared memory per kernel;
+                 backward), K3 (segment reduce), K4 (saturation count), M1
+                 and M2 from vegs_torch/csrc, in parallel; ptxas registers
+                 and shared memory per kernel, and K1's and K2's
+                 registers, shared memory and resident blocks per SM as
+                 the CUDA runtime reports them (16x16 tiles);
   3. k4_check -- K4 against its plain PyTorch version on a saturating
                  reduced scene (128x512, 60k Gaussians);
   4. k1_check -- K1 against its plain version at 128x512 with 30k Gaussians,
@@ -21,7 +23,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  frames) with the launch counters reset just before; then
                  the sat cull on vs off must give bit-identical rgb, depth
                  and alpha, and K1/K4 are held against their plain versions
-                 on that frame's inputs;
+                 on that frame's inputs; then K1 with its per-warp
+                 footprint cull against K1 with the cull compiled out on
+                 that frame (k1_cull): out and stop equal to the bit, both
+                 times, the share of warp-instance pairs the cull skipped;
   6. timing   -- ms per frame, K1/K4 ms at the full-width shapes (CUDA
                  events), the plain versions' ms, the bound of each kernel,
                  peak device memory; then a profile of 4 frames;
@@ -37,7 +42,11 @@ Phases, one JSON line each; any failure exits non-zero:
                  profile of 2 more steps on it;
   8. k2/k3    -- K2 and K3 against their plain versions on the first
                  step's full-width inputs, with card, plain, bound and (K3)
-                 library times;
+                 library times; K2 with and without its cull (k2_cull: dpf
+                 and dpa equal to the bit, both times, the skipped share);
+                 and K2's and the float32 plain version's f32 rows on the
+                 deep instances of the 32 deepest tiles against a float64
+                 walk of those tiles (k2_f64);
   9. grad     -- one step's gradients (every field leaf and the means2d
                  tap) through the kernels on the card against the plain
                  versions on the CPU, on a reduced scene (128x512, 50k
@@ -75,7 +84,14 @@ instance's group (its tile's 256-instance batch), plus one bf16 ulp (2^-7
 after each tile's first 256. K3: |d| <= 1e-5 * (sum of |x| over the
 segment) -- the plain version adds with atomics in any order on the card;
 control: each segment's last column left out. Step gradients: relative L2
-error <= 1e-4 per leaf; control: K2's f32 rows rounded to bf16. M2 must be
+error <= 1e-4 per leaf; control: K2's f32 rows rounded to bf16. K1 and K2
+with the cull against the same kernels without it: equal to the bit. K2's
+f32 rows on the deep instances of the 32 deepest tiles against a float64
+walk of those tiles (the float64 forward seeding it): |d| <= 1e-2 of the
+largest |float64| of the instance's 256-instance group -- the float32
+cancellation of dL = tail - cum is what is left there, and the kernel's
+compensated sums read 5.6e-3 on an H100 against the float32 plain
+version's 7.4e-3; control: the kernel's output 1% off there (1.4e-2). M2 must be
 bit-identical to its plain version. M1: |d| <= 1e-8 * (sum of |x|) -- the
 kernel and its plain version add in other orders; the sound readings on an
 H100 are at most 1.3e-10; control: the sum with the last 2^17-long block
@@ -115,6 +131,8 @@ K3_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 CONTROL_ERR = 0.01  # the K2 control's error on the deep instances
 M1_RTOL = 1e-8
+K2_F64_TILES = 32   # the deepest tiles of the first step, walked in float64
+K2_F64_RTOL = 0.01  # K2's deep f32 rows against float64, of the group max
 
 # Iterations 3001-3008 (SH degree 3 active); the one densify-and-prune
 # event falls at 3008, after that step's loss, so the losses compare the
@@ -391,6 +409,112 @@ def hold(name, reading, limit, control=None):
     if control is not None and not control > limit:
         raise AssertionError(f"{name}: the control reads {control}, within "
                              f"the limit {limit}: the check is too loose")
+
+
+def bits(x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def cull_times(fn) -> dict:
+    """ms per call of fn(True) (the kernel with its cull) and fn(False)
+    (compiled out), by CUDA events, in turns off, on, on, off."""
+    from vegs_torch.perf.timing import cuda_ms
+
+    t = {True: [], False: []}
+    for cull in (False, True, True, False):
+        t[cull].append(cuda_ms(lambda: fn(cull)))
+    return {"ms": float(np.mean(t[True])), "ms_nocull": float(np.mean(t[False])),
+            "ms_runs": t[True], "ms_nocull_runs": t[False]}
+
+
+def k1_cull(st) -> dict:
+    """K1 with its per-warp footprint cull against K1 with the cull
+    compiled out, on the same inputs: out and stop equal to the bit; both
+    times; the warp-instance pairs considered, walked and the skipped
+    share."""
+    from vegs_torch.ops import blend_cuda
+
+    g = st.grid
+    args = (st.payload_f32, st.payload_aux, st.binned.tile_starts, g,
+            g.padded_height, g.padded_width)
+    on = blend_cuda.blend_check(*args, cull=True)
+    off = blend_cuda.blend_check(*args, cull=False)
+    res = {"bit_identical": {"out": bool(torch.equal(bits(on[0]), bits(off[0]))),
+                             "stop": bool(torch.equal(on[1], off[1]))},
+           **cull_times(lambda c: blend_cuda.blend_check(*args, cull=c,
+                                                         counts=False)),
+           "pairs": on[2], "pairs_nocull": off[2]}
+    if not all(res["bit_identical"].values()):
+        raise AssertionError(f"K1 with and without the cull differ: {res}")
+    return res
+
+
+def k2_cull(k2_args) -> dict:
+    """K2 with and without its cull, as `k1_cull`: dpf and dpa equal to
+    the bit."""
+    from vegs_torch.ops import blend_cuda
+
+    on = blend_cuda.blend_bwd_check(*k2_args, cull=True)
+    off = blend_cuda.blend_bwd_check(*k2_args, cull=False)
+    res = {"bit_identical": {"dpf": bool(torch.equal(bits(on[0]), bits(off[0]))),
+                             "dpa": bool(torch.equal(bits(on[1]), bits(off[1])))},
+           **cull_times(lambda c: blend_cuda.blend_bwd_check(
+               *k2_args, cull=c, counts=False)),
+           "pairs": on[2], "pairs_nocull": off[2]}
+    if not all(res["bit_identical"].values()):
+        raise AssertionError(f"K2 with and without the cull differ: {res}")
+    return res
+
+
+def k2_float64(k2_args) -> dict:
+    """How far K2's f32 gradient rows (dpf) and the float32 plain
+    version's lie from a float64 walk, on the deep instances (after each
+    tile's first 256) of the K2_F64_TILES deepest tiles of the first
+    training step; the float64 forward of those tiles seeds the float64
+    backward. Tiles where K1, the float32 plain forward or the float64 one
+    stop at different instances are left out. Readings (`k2_readings`, per
+    instance over the largest |float64| of its 256-instance group, and per
+    row), for the kernel, the plain version and the control -- the
+    kernel's output CONTROL_ERR off on the deep instances."""
+    from vegs_torch.ops import blend_cuda
+
+    pf, pa, ts, out, dout, grid = k2_args
+    hp, wp = grid.padded_height, grid.padded_width
+    k = pf.shape[1]
+    tiles = sorted(torch.topk(ts[1:] - ts[:-1], K2_F64_TILES).indices.tolist())
+    t0 = time.perf_counter()
+    _, stop = blend_cuda.blend(pf, pa, ts, grid, hp, wp, return_stop=True)
+    fwd = {dt: blend_cuda.blend_ref_tiles(pf, pa, ts, grid, hp, wp,
+                                          return_stop=True, tiles=tiles,
+                                          dtype=dt)
+           for dt in (torch.float32, torch.float64)}
+    kpf, _ = blend_cuda.blend_bwd(*k2_args)
+    rpf, _ = blend_cuda.blend_bwd_ref_tiles(*k2_args, tiles=tiles)
+    out64 = fwd[torch.float64][0]
+    xpf, _ = blend_cuda.blend_bwd_ref_tiles(pf, pa, ts, out64, dout, grid,
+                                            tiles=tiles, dtype=torch.float64)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    same = (stop == fwd[torch.float32][1]) & (stop == fwd[torch.float64][1])
+    tile_ok = same.reshape(grid.nty, grid.tile_h, grid.ntx, grid.tile_w
+                           ).all(dim=3).all(dim=1).reshape(-1)
+    kept = torch.zeros(grid.num_tiles, dtype=torch.bool, device=ts.device)
+    kept[tiles] = True
+    kept &= tile_ok
+    tile, batch = slot_tiles(ts, k, grid)
+    live = torch.arange(k, device=ts.device) < int(ts[-1])
+    deep = kept[tile] & (batch > 0) & live
+    ref = xpf.float()
+    ctl = deep_control(ts, k, grid)
+    res = {"tiles": len(tiles), "kept_tiles": int(kept.sum()),
+           "deep_instances": int(deep.sum()),
+           "nonzero_dop": int((xpf[5][deep] != 0).sum()),
+           "plain_f64_seconds": seconds,
+           "kernel": k2_readings(kpf, ref, ts, grid, deep, 0.0),
+           "plain_f32": k2_readings(rpf, ref, ts, grid, deep, 0.0),
+           "control": k2_readings(kpf * ctl, ref, ts, grid, deep, 0.0)}
+    res["kernel_closer"] = res["kernel"]["group"] < res["plain_f32"]["group"]
+    return res
 
 
 def compare_k3(k3_args):
@@ -795,7 +919,11 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "smem" in ln]
              for name, log in b["ptxas"].items()}
+    occupancy = {f"{lib} {dt}": blend_cuda.kernel_info(lib, dt, 256)
+                 for lib in ("blend_fwd", "blend_bwd")
+                 for dt in (torch.bfloat16, torch.float32)}
     emit("build", seconds=b["seconds"], built=b["built"], ptxas=ptxas,
+         occupancy_16x16=occupancy,
          dir=str(kernels.build_dir().relative_to(HERE)))
 
     # -- 3. K4 at a saturating reduced scene --------------------------------
@@ -919,6 +1047,9 @@ def main() -> int:
         k1_full = compare_k1(st)
         emit("k1_check", scene="376x1408, 2,233,571 Gaussians", aux="bf16",
              card=card, **k1_full)
+        k1c = k1_cull(st)
+        emit("k1_cull", scene="376x1408, 2,233,571 Gaussians", aux="bf16",
+             card=card, **k1c)
 
         # -- 6. timing at the full-width shapes --------------------------------
         grid = st.grid
@@ -987,6 +1118,14 @@ def main() -> int:
              k2[rows]["control_reading"][scale])
     if k2["flip_tiles"] > K2_MAX_FLIP_TILES * grid2.num_tiles:
         raise AssertionError(f"K2: {k2['flip_tiles']} stop-flip tiles")
+    k2c = k2_cull(k2_args)
+    emit("k2_cull", scene="376x1408, 2,233,571 Gaussians, first train step",
+         aux=str(pa.dtype), card=card, **k2c)
+    k2x = k2_float64(k2_args)
+    emit("k2_f64", scene="376x1408, 2,233,571 Gaussians, first train step",
+         aux=str(pa.dtype), card=card, limit=K2_F64_RTOL, held="group", **k2x)
+    hold("K2 deep f32 rows against float64", k2x["kernel"]["group"],
+         K2_F64_RTOL, k2x["control"]["group"])
 
     from vegs_torch.ops import segreduce
 
@@ -1032,7 +1171,9 @@ def main() -> int:
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "ms_nocull": k1c["ms_nocull"],
+         "cull_skipped_share": k1c["pairs"]["skipped_share"]},
         {"name": "K2 blend_bwd", "route": "cuda",
          "source": "vegs_torch/csrc/blend_bwd.cu",
          "replaces": "vegs_tpu/ops/blend_pallas.py:274",
@@ -1042,7 +1183,9 @@ def main() -> int:
                         for rows, scale in K2_SCALE.items()),
          "flip_tiles": k2["flip_tiles"],
          "ms": k2_ms, "plain_ms": k2["plain_ms"],
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "ms_nocull": k2c["ms_nocull"],
+         "cull_skipped_share": k2c["pairs"]["skipped_share"]},
         {"name": "K3 segreduce", "route": "cuda",
          "source": "vegs_torch/csrc/segreduce.cu",
          "replaces": "vegs_tpu/ops/segreduce.py:46",

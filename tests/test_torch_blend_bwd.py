@@ -173,3 +173,45 @@ def test_blend_autograd_function_on_cpu():
     with pytest.raises(ValueError, match="dout"):
         blend_cuda.blend_bwd(pf_t.detach(), pa_t.detach(), ts, out.detach(),
                              dout[:, :h], tgrid)
+
+
+def test_plain_versions_float64_and_tile_subset():
+    """The plain versions' yardstick options: computing in float64 stays
+    within float32 rounding of the float32 walk (forward 1e-4, gradients
+    1e-4 of the row's max), and walking a subset of the tiles gives those
+    tiles' outputs and gradients unchanged and leaves the rest empty."""
+    grid, binned, pf, pa = _payloads(jnp.float32, seed=7)
+    hp, wp = grid.padded_height, grid.padded_width
+    tgrid = tbin.TileGrid(*grid)
+    args = (_t(pf), _t(pa), _t(binned.tile_starts))
+    out32, stop32 = blend_cuda.blend_ref_tiles(*args, tgrid, hp, wp,
+                                               return_stop=True)
+    out64, stop64 = blend_cuda.blend_ref_tiles(*args, tgrid, hp, wp,
+                                               return_stop=True,
+                                               dtype=torch.float64)
+    assert out64.dtype == torch.float64 and torch.equal(stop32, stop64)
+    np.testing.assert_allclose(out64.numpy(), out32.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    dout = torch.from_numpy(np.random.default_rng(8).normal(
+        size=tuple(out32.shape)).astype(np.float32))
+    g32 = blend_cuda.blend_bwd_ref_tiles(*args, out32, dout, tgrid)
+    g64 = blend_cuda.blend_bwd_ref_tiles(*args, out32, dout, tgrid,
+                                         dtype=torch.float64)
+    assert all(g.dtype == torch.float64 for g in g64)
+    for a, b in zip(g32, g64):
+        _assert_rows_close(a.numpy(), b.numpy())
+    starts = binned.tile_starts.tolist()
+    tiles = [t for t in range(tgrid.num_tiles) if starts[t + 1] > starts[t]][1::2]
+    sub = blend_cuda.blend_ref_tiles(*args, tgrid, hp, wp, tiles=tiles)
+    gsub = blend_cuda.blend_bwd_ref_tiles(*args, out32, dout, tgrid,
+                                          tiles=tiles)
+    inside = torch.zeros(pf.shape[1], dtype=torch.bool)
+    for t in tiles:
+        oy, ox = (t // tgrid.ntx) * 16, (t % tgrid.ntx) * 16
+        assert torch.equal(sub[:, oy:oy + 16, ox:ox + 16],
+                           out32[:, oy:oy + 16, ox:ox + 16])
+        inside[starts[t]:starts[t + 1]] = True
+    for a, b in zip(gsub, g32):
+        assert torch.equal(a[:, inside], b[:, inside])
+        assert not a[:, ~inside].any()
+    assert int((g32[0][5][inside] != 0).sum()) > 20

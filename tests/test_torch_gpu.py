@@ -211,6 +211,71 @@ def test_blend_bwd_kernel_matches_plain(cuda, aux):
     assert int((kpf[5] != 0).sum()) > 1000
 
 
+def _bits(x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.parametrize("aux", ["f32", "bf16"])
+def test_blend_cull_bit_identical(cuda, aux):
+    """K1 (out, stop) and K2 (dpf, dpa) with the per-warp footprint cull
+    equal, to the bit, the same kernels with the cull compiled out, and the
+    main path's wrappers give the culled results; K1 also on 16x32 tiles
+    (K2 takes at most 256 pixels a tile). The cull skips warp-instance
+    pairs even in this scene of large splats; without it the warps walk
+    every pair they consider."""
+    arrays, cam = _scene(cuda, opacity_range=(0.02, 0.6))
+    for th, tw in ((16, 16), (16, 32)):
+        st = stage(*arrays, cam, config=CFG._replace(
+            payload_dtype=aux, tile_h=th, tile_w=tw))
+        g = st.grid
+        args = (st.payload_f32, st.payload_aux, st.binned.tile_starts, g)
+        hw = (g.padded_height, g.padded_width)
+        n0 = blend_cuda.blend.launches
+        on, stop_on, c_on = blend_cuda.blend_check(*args, *hw, cull=True)
+        off, stop_off, c_off = blend_cuda.blend_check(*args, *hw, cull=False)
+        assert blend_cuda.blend.launches == n0
+        main, stop = blend_cuda.blend(*args, *hw, return_stop=True)
+        torch.cuda.synchronize()
+        print(f"K1 {aux} {th}x{tw}: cull {c_on}, no cull {c_off}")
+        assert torch.equal(_bits(on), _bits(off))
+        assert torch.equal(stop_on, stop_off)
+        assert torch.equal(_bits(main), _bits(on)) and torch.equal(stop, stop_on)
+        assert c_off["walked"] == c_off["warp_instances"] > 0
+        assert c_on["warp_instances"] == c_off["warp_instances"]
+        assert c_on["skipped_share"] > 0.05
+        if th * tw > blend_cuda.BWD_MAX_PIXELS:
+            continue
+        dout = torch.randn(on.shape, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+        n0 = blend_cuda.blend_bwd.launches
+        pf1, pa1, b_on = blend_cuda.blend_bwd_check(*args[:3], on, dout, g,
+                                                    cull=True)
+        pf0, pa0, b_off = blend_cuda.blend_bwd_check(*args[:3], on, dout, g,
+                                                     cull=False)
+        assert blend_cuda.blend_bwd.launches == n0
+        mpf, mpa = blend_cuda.blend_bwd(*args[:3], on, dout, g)
+        torch.cuda.synchronize()
+        print(f"K2 {aux}: cull {b_on}, no cull {b_off}")
+        for a, b, c in ((pf1, pf0, mpf), (pa1, pa0, mpa)):
+            assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(c),
+                                                                   _bits(a))
+        assert int((pf1[5] != 0).sum()) > 1000
+        assert b_off["walked"] == b_off["warp_instances"] > 0
+        assert b_on["skipped_share"] > 0.05
+
+
+@pytest.mark.parametrize("lib", ["blend_fwd", "blend_bwd"])
+def test_blend_kernel_occupancy(cuda, lib):
+    """The runtime's view of K1 and K2 at 16x16 tiles: no spills, three K2
+    blocks per SM and four K1 blocks (K1 is built for tiles of up to 1024
+    pixels, so for at most 64 registers)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        info = blend_cuda.kernel_info(lib, dtype, 256)
+        print(f"{lib} {dtype}: {info}")
+        assert info["local_bytes"] == 0 and info["registers"] > 0
+        assert info["blocks_per_sm"] >= (3 if lib == "blend_bwd" else 4)
+
+
 def test_segreduce_kernel_matches_plain(cuda):
     """K3 sums each segment in column order in float32, as the plain
     version does on the CPU: bit-identical to it."""

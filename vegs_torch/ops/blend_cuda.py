@@ -6,9 +6,11 @@ Counterpart of vegs_tpu/ops/blend_pallas.py.
 `blend` replaces the Pallas kernel `_fwd_kernel` (blend_pallas.py:201,
 launched by `_blend_fwd_impl`:464). On a CUDA tensor it launches the
 hand-written kernel in `csrc/blend_fwd.cu` (one block per 16x16 tile, one
-thread per pixel, 256-instance batches staged in shared memory, log-T
-carry, block-wide early exit -- see the source note there: the kernel is
-bound by its per-pixel scalar math, not by memory). On a CPU tensor it runs
+thread per pixel, each warp on an 8x4 rectangle, 256-instance batches
+staged in shared memory with cp.async, each warp walking only the
+instances whose footprint box reaches its pixels, log-T carry, block-wide
+early exit -- see the source note there: the kernel is bound by its
+per-pixel scalar math, not by memory). On a CPU tensor it runs
 `blend_ref_tiles`, the plain version, which walks each tile's padded range
 in 256-instance windows as dense [256, P] tensor ops over the spec's
 log-space trajectory.
@@ -19,29 +21,109 @@ and its cotangent in one forward-walking sweep (`csrc/blend_bwd.cu`; plain
 version `blend_bwd_ref_tiles`). `BlendFn` is the differentiable blend (the
 counterpart of `_blend_cv`:560): K1 forward, K2 backward. Nothing falls back
 from a kernel to its plain version.
+
+`footprint_box`, `box_hits`, `thread_pixels` and `warp_rects` are the
+plain twins of the kernels' per-warp cull (`csrc/splat.cuh`), for the
+tests and `chip_smoke.py`; `blend_check` and `blend_bwd_check` launch K1
+and K2 with or without the cull compiled in, with its counts, for
+`chip_smoke.py`'s bit-identity check only. Neither is on the main path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
 from .. import kernels
 from .binning import PAD_ALIGN, TileGrid
-from .blend_ref import ALPHA_CLAMP, N_ACCUM, OUT_CHANNELS, T_EPS, splat_terms
+from .blend_ref import (ALPHA_CLAMP, ALPHA_MIN, N_ACCUM, OUT_CHANNELS, T_EPS,
+                        splat_terms)
 
 F32_ROWS = 8    # payload_f32 rows
 AUX_ROWS = 16   # payload_aux rows
 NEG_CAP = -80.0
 BWD_MAX_PIXELS = 256  # K2 stages one tile's pixels per block, at most 256
 
+# The footprint box (csrc/splat.cuh): the conic's diagonal shrunk by
+# BOX_REL of (diagonal + |b|), tau = ln(255 op) inflated by BOX_TAU_REL and
+# BOX_TAU_ABS, a determinant under BOX_MIN_DET of a'c' taken as unbounded.
+BOX_REL, BOX_TAU_REL, BOX_TAU_ABS, BOX_MIN_DET = 1e-5, 1e-4, 1e-4, 1e-12
+ALPHA_MIN_F32 = torch.tensor(ALPHA_MIN, dtype=torch.float32)  # 1.0f / 255.0f
+
+
+def _round_up_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> the least float32 >= x (__double2float_ru)."""
+    y = x.to(torch.float32)
+    up = torch.nextafter(y, torch.full_like(y, math.inf))
+    return torch.where(y.to(torch.float64) < x, up, y)
+
+
+def footprint_box(mx, my, a, b, c, op):
+    """Twin of `footprint_box` in csrc/splat.cuh: per instance the
+    half-widths (rx, ry), float32, of a box around (mx, my) holding every
+    pixel whose float32 differences dx = fl(px - mx), dy = fl(py - my)
+    `splat_eval` can accept (alpha > 0): -inf (empty) for op < 1/255, +inf
+    (unbounded) for a conic not positive definite after the shrink or any
+    non-finite input. Evaluated in float64, rounded up."""
+    f32 = [torch.as_tensor(x, dtype=torch.float32) for x in (mx, my, a, b, c, op)]
+    finite = torch.stack([torch.isfinite(x) for x in f32]).all(dim=0)
+    a, b, c, op = (x.to(torch.float64) for x in f32[2:])
+    tau = (torch.log(255.0 * op).clamp(min=0.0) * (1.0 + BOX_TAU_REL)
+           + BOX_TAU_ABS)
+    ab = b.abs()
+    a2 = a - BOX_REL * (a + ab)
+    c2 = c - BOX_REL * (c + ab)
+    det = a2 * c2 - b * b
+    pd = (a2 > 0) & (c2 > 0) & (det > BOX_MIN_DET * a2 * c2)
+    inf = torch.tensor(math.inf, dtype=torch.float32)
+    empty = ~(f32[5] >= ALPHA_MIN_F32)
+    out = []
+    for num in (c2, a2):
+        r = _round_up_f32(torch.sqrt(2.0 * tau * num / det))
+        r = torch.where(pd, r, inf)
+        r = torch.where(empty, -inf, r)
+        out.append(torch.where(finite, r, inf))
+    return out[0], out[1]
+
+
+def box_hits(x0, x1, y0, y1, mx, my, rx, ry):
+    """Twin of `box_hits` in csrc/splat.cuh: whether boxes (rx, ry) around
+    (mx, my) can reach a pixel of [x0, x1] x [y0, y1] (pixel coordinates),
+    from the float32 differences; a NaN never rejects."""
+    f = [torch.as_tensor(v, dtype=torch.float32)
+         for v in (x0, x1, y0, y1, mx, my, rx, ry)]
+    x0, x1, y0, y1, mx, my, rx, ry = f
+    return (~(x0 - mx > rx) & ~(x1 - mx < -rx)
+            & ~(y0 - my > ry) & ~(y1 - my < -ry))
+
+
+def thread_pixels(tile_h: int, tile_w: int):
+    """Twin of `thread_pixel` in csrc/splat.cuh: the tile-local pixel
+    (lx, ly) of each thread of a block, [tile_h * tile_w] int64 each. Warps
+    take 8x4 rectangles when tile_w % 8 == 0 and tile_h % 4 == 0, else the
+    map is row-major."""
+    t = torch.arange(tile_h * tile_w)
+    if tile_w % 8 == 0 and tile_h % 4 == 0:
+        w, lane, per_row = t // 32, t % 32, tile_w // 8
+        return (w % per_row) * 8 + lane % 8, (w // per_row) * 4 + lane // 8
+    return t % tile_w, t // tile_w
+
+
+def warp_rects(tile_h: int, tile_w: int) -> torch.Tensor:
+    """[warps, 4] int64: each warp's tile-local (x0, x1, y0, y1), the
+    bounding rectangle of its 32 pixels (the kernels' `warp_rect`)."""
+    lx, ly = (v.reshape(-1, 32) for v in thread_pixels(tile_h, tile_w))
+    return torch.stack([lx.amin(1), lx.amax(1), ly.amin(1), ly.amax(1)], 1)
+
 
 def _chan_rows(payload_f32: torch.Tensor, payload_aux: torch.Tensor):
     """[11, K] accumulation channels in blend_ref payload-row order 6..16:
-    rgb (aux 0-2), depth (f32 row 6), quat (aux 3-6), scale (aux 7-9)."""
-    a = payload_aux.to(torch.float32)
+    rgb (aux 0-2), depth (f32 row 6), quat (aux 3-6), scale (aux 7-9), in
+    payload_f32's dtype."""
+    a = payload_aux.to(payload_f32.dtype)
     return torch.cat([a[0:3], payload_f32[6:7], a[3:10]], dim=0)
 
 
@@ -63,22 +145,23 @@ class _TileWalk:
     the same instances: per window, alpha [256, P], the exclusive prefix of
     log(1 - alpha) from the carried log T, the first crossing per pixel, and
     the inclusion set (alpha > 0 before the crossing). The walk leaves the
-    range once every pixel has crossed, as the kernels do."""
+    range once every pixel has crossed, as the kernels do. It computes in
+    payload_f32's dtype (float32 for the kernels' plain versions)."""
 
     def __init__(self, payload_f32, grid: TileGrid, t: int, s: int, e: int):
-        dev = payload_f32.device
+        dev, ft = payload_f32.device, payload_f32.dtype
         p = grid.tile_h * grid.tile_w
         self.pf, self.s, self.e = payload_f32, s, e
         self.oy = (t // grid.ntx) * grid.tile_h
         self.ox = (t % grid.ntx) * grid.tile_w
         ar = torch.arange(p, device=dev)
-        self.lx = (ar % grid.tile_w).to(torch.float32)
-        self.ly = (ar // grid.tile_w).to(torch.float32)
-        self.logT = torch.zeros((p,), dtype=torch.float32, device=dev)
+        self.lx = (ar % grid.tile_w).to(ft)
+        self.ly = (ar // grid.tile_w).to(ft)
+        self.logT = torch.zeros((p,), dtype=ft, device=dev)
         self.crossed = torch.zeros((p,), dtype=torch.bool, device=dev)
         self.stop = torch.full((p,), e - s, dtype=torch.int32, device=dev)
         self.idx_w = torch.arange(PAD_ALIGN, device=dev)[:, None]
-        self.zero = torch.zeros((), dtype=torch.float32, device=dev)
+        self.zero = torch.zeros((), dtype=ft, device=dev)
 
     def windows(self):
         px = (self.lx + self.ox)[None, :]
@@ -112,7 +195,8 @@ class _TileWalk:
 
 def blend_ref_tiles(payload_f32, payload_aux, tile_starts, grid: TileGrid,
                     hp: int, wp: int, return_stop: bool = False,
-                    pairs: dict | None = None):
+                    pairs: dict | None = None, tiles=None,
+                    dtype: torch.dtype = torch.float32):
     """Plain PyTorch version of K1. Returns [12, hp, wp] (and, with
     `return_stop`, the per-pixel stop index [hp, wp] int32: the position in
     the tile's range of the instance before which the pixel stopped, or the
@@ -125,22 +209,27 @@ def blend_ref_tiles(payload_f32, payload_aux, tile_starts, grid: TileGrid,
     "slots" (instances the tiles must read: up to each tile's farthest
     stop).
 
+    `tiles` (tile indices) restricts the walk to those tiles: the others
+    keep out = 0 (T = 1) and stop = 0. `dtype` is the dtype the walk
+    computes and returns in; float64 serves as a yardstick for the float32
+    walks (tests and chip_smoke.py only).
+
     Per tile, per 256-instance window (`_TileWalk`): acc += (alpha * T)^T @
     channels over the included instances."""
     dev = payload_f32.device
-    f32 = torch.float32
+    payload_f32 = payload_f32.to(dtype)
     p = grid.tile_h * grid.tile_w
-    out = torch.zeros((OUT_CHANNELS, hp, wp), dtype=f32, device=dev)
+    out = torch.zeros((OUT_CHANNELS, hp, wp), dtype=dtype, device=dev)
     out[N_ACCUM] = 1.0
     stop = torch.zeros((hp, wp), dtype=torch.int32, device=dev)
     chan = _chan_rows(payload_f32, payload_aux)  # [11, K]
     starts = tile_starts.tolist()
-    zero = torch.zeros((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
     work = torch.zeros(4, dtype=torch.int64, device=dev)
-    for t in range(grid.num_tiles):
+    for t in range(grid.num_tiles) if tiles is None else tiles:
         walk = _TileWalk(payload_f32, grid, t, starts[t], starts[t + 1])
         walked_px = torch.zeros((p,), dtype=torch.int64, device=dev)
-        acc = torch.zeros((p, N_ACCUM), dtype=f32, device=dev)
+        acc = torch.zeros((p, N_ACCUM), dtype=dtype, device=dev)
         for win in walk.windows():
             if pairs is not None:
                 upto = walk.idx_w[:win.b1 - win.b0] <= win.cpos[None, :]
@@ -165,7 +254,8 @@ def blend_ref_tiles(payload_f32, payload_aux, tile_starts, grid: TileGrid,
 
 
 def blend_bwd_ref_tiles(payload_f32, payload_aux, tile_starts, out, dout,
-                        grid: TileGrid):
+                        grid: TileGrid, tiles=None,
+                        dtype: torch.dtype = torch.float32):
     """Plain PyTorch version of K2: per-instance gradients (dpf [8, K] f32,
     dpa [16, K] in the aux dtype) of the blend, from the forward output `out`
     and its cotangent `dout` ([12, hp, wp] each).
@@ -177,18 +267,23 @@ def blend_bwd_ref_tiles(payload_f32, payload_aux, tile_starts, out, dout,
     dalpha = (T dw - dL / (1 - alpha)) on included pairs, dpower = dalpha
     alpha and dop = dalpha exp(power) where alpha_raw < 0.99; the conic and
     mean gradients from dpower times the tile-local pixel monomials. Slots
-    the walk never reaches, and past tile_starts[-1], get zeros."""
+    the walk never reaches, and past tile_starts[-1], get zeros.
+
+    `tiles` restricts the walk to those tile indices (the others' slots
+    stay 0). `dtype` is the dtype it computes in; with float64 (a yardstick
+    for the float32 walks, tests and chip_smoke.py only) dpa is returned in
+    float64 too, not in the aux dtype."""
     dev = payload_f32.device
-    f32 = torch.float32
+    payload_f32, out, dout = (x.to(dtype) for x in (payload_f32, out, dout))
     k = payload_f32.shape[1]
     th, tw = grid.tile_h, grid.tile_w
-    dpf = torch.zeros((F32_ROWS, k), dtype=f32, device=dev)
-    dpa = torch.zeros((AUX_ROWS, k), dtype=f32, device=dev)
+    dpf = torch.zeros((F32_ROWS, k), dtype=dtype, device=dev)
+    dpa = torch.zeros((AUX_ROWS, k), dtype=dtype, device=dev)
     chan = _chan_rows(payload_f32, payload_aux)  # [11, K]
     tail_map = (dout * out).sum(dim=0)           # [hp, wp]
     starts = tile_starts.tolist()
-    zero = torch.zeros((), dtype=f32, device=dev)
-    for t in range(grid.num_tiles):
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    for t in range(grid.num_tiles) if tiles is None else tiles:
         s, e = starts[t], starts[t + 1]
         if e <= s:
             continue
@@ -229,7 +324,7 @@ def blend_bwd_ref_tiles(payload_f32, payload_aux, tile_starts, out, dout,
             dpf[6, b0:b1] = dchan[:, 3]
             dpa[0:3, b0:b1] = dchan[:, 0:3].T
             dpa[3:10, b0:b1] = dchan[:, 4:11].T
-    return dpf, dpa.to(payload_aux.dtype)
+    return dpf, dpa.to(payload_aux.dtype if dtype == torch.float32 else dtype)
 
 
 def _check_inputs(payload_f32, payload_aux, tile_starts, grid, hp, wp):
@@ -256,28 +351,43 @@ def _contiguous(*ts):
             raise ValueError("kernel inputs must be contiguous")
 
 
-def _launch(payload_f32, payload_aux, tile_starts, grid, hp, wp, stop):
+_FWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _entry(lib: str, symbol: str, argtypes):
+    fn = getattr(kernels.load(lib), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch(payload_f32, payload_aux, tile_starts, grid, hp, wp, stop,
+            symbol="vegs_blend_fwd", stats=None):
     _contiguous(payload_f32, payload_aux, tile_starts)
     if grid.tile_h * grid.tile_w > 1024 or (grid.tile_h * grid.tile_w) % 32:
         raise ValueError("tile_h * tile_w must be a multiple of 32, <= 1024")
-    fn = kernels.load("blend_fwd").vegs_blend_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn = _entry("blend_fwd", symbol, _FWD_ARGS)
     dev = payload_f32.device
     out = torch.empty((OUT_CHANNELS, hp, wp), dtype=torch.float32, device=dev)
-    stop_ptr = stop.data_ptr() if stop is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(payload_f32.data_ptr(), payload_aux.data_ptr(),
                  int(payload_aux.dtype == torch.bfloat16),
                  tile_starts.data_ptr(), payload_f32.shape[1], grid.ntx,
-                 grid.nty, grid.tile_h, grid.tile_w, out.data_ptr(), stop_ptr,
-                 stream)
-    kernels.check(err, "blend_fwd")
-    blend.launches += 1
+                 grid.nty, grid.tile_h, grid.tile_w, out.data_ptr(),
+                 _ptr(stop), _ptr(stats), stream)
+    kernels.check(err, symbol)
     return out
 
 
@@ -296,25 +406,21 @@ def blend(payload_f32, payload_aux, tile_starts, grid: TileGrid, hp: int,
     stop = (torch.empty((hp, wp), dtype=torch.int32, device=payload_f32.device)
             if return_stop else None)
     out = _launch(payload_f32, payload_aux, tile_starts, grid, hp, wp, stop)
+    blend.launches += 1
     return (out, stop) if return_stop else out
 
 
 blend.launches = 0  # K1 launches: incremented where the kernel is launched
 
 
-def _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout, grid):
+def _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout, grid,
+                symbol="vegs_blend_bwd", stats=None):
     _contiguous(payload_f32, payload_aux, tile_starts, out, dout)
     p = grid.tile_h * grid.tile_w
     if p > BWD_MAX_PIXELS or p % 32:
         raise ValueError("the blend backward needs tile_h * tile_w a "
                          f"multiple of 32, <= {BWD_MAX_PIXELS}")
-    fn = kernels.load("blend_bwd").vegs_blend_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn = _entry("blend_bwd", symbol, _BWD_ARGS)
     dev = payload_f32.device
     k = payload_f32.shape[1]
     # zeros: slots the walk never reaches keep a zero gradient
@@ -326,18 +432,12 @@ def _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout, grid):
                  int(payload_aux.dtype == torch.bfloat16),
                  tile_starts.data_ptr(), k, grid.ntx, grid.nty, grid.tile_h,
                  grid.tile_w, out.data_ptr(), dout.data_ptr(), dpf.data_ptr(),
-                 dpa.data_ptr(), stream)
-    kernels.check(err, "blend_bwd")
-    blend_bwd.launches += 1
+                 dpa.data_ptr(), _ptr(stats), stream)
+    kernels.check(err, symbol)
     return dpf, dpa
 
 
-def blend_bwd(payload_f32, payload_aux, tile_starts, out, dout,
-              grid: TileGrid):
-    """Per-instance gradients of `blend` (dpf [8, K] f32, dpa [16, K] in
-    the aux dtype) from its output `out` and the cotangent `dout`, both
-    [12, hp, wp] over the padded grid. CUDA tensors launch K2; CPU tensors
-    run `blend_bwd_ref_tiles`."""
+def _check_bwd_inputs(payload_f32, payload_aux, tile_starts, out, dout, grid):
     hp, wp = grid.padded_height, grid.padded_width
     _check_inputs(payload_f32, payload_aux, tile_starts, grid, hp, wp)
     for name, x in (("out", out), ("dout", dout)):
@@ -346,15 +446,88 @@ def blend_bwd(payload_f32, payload_aux, tile_starts, out, dout,
         if x.device != payload_f32.device:
             raise ValueError(f"{name} is on {x.device}, the payload on "
                              f"{payload_f32.device}")
+
+
+def blend_bwd(payload_f32, payload_aux, tile_starts, out, dout,
+              grid: TileGrid):
+    """Per-instance gradients of `blend` (dpf [8, K] f32, dpa [16, K] in
+    the aux dtype) from its output `out` and the cotangent `dout`, both
+    [12, hp, wp] over the padded grid. CUDA tensors launch K2; CPU tensors
+    run `blend_bwd_ref_tiles`."""
+    _check_bwd_inputs(payload_f32, payload_aux, tile_starts, out, dout, grid)
     if payload_f32.device.type == "cpu":
         return blend_bwd_ref_tiles(payload_f32, payload_aux, tile_starts,
                                    out, dout, grid)
     if payload_f32.device.type != "cuda":
         raise ValueError(f"no blend kernel for device {payload_f32.device}")
-    return _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout, grid)
+    dpf, dpa = _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout,
+                           grid)
+    blend_bwd.launches += 1
+    return dpf, dpa
 
 
 blend_bwd.launches = 0  # K2 launches: incremented where the kernel is launched
+
+
+def _variant(symbol: str, payload_f32, cull: bool, counts: bool):
+    """The C entry with the cull compiled in or out, and a zeroed [2] int64
+    buffer for its counts (or None)."""
+    if payload_f32.device.type != "cuda":
+        raise ValueError("the kernel variants run on a CUDA device only")
+    stats = (torch.zeros(2, dtype=torch.int64, device=payload_f32.device)
+             if counts else None)
+    return symbol if cull else symbol + "_nocull", stats
+
+
+def _cull_counts(stats):
+    if stats is None:
+        return None
+    considered, walked = (int(x) for x in stats.tolist())
+    return {"warp_instances": considered, "walked": walked,
+            "skipped_share": 1.0 - walked / considered if considered else 0.0}
+
+
+def blend_check(payload_f32, payload_aux, tile_starts, grid: TileGrid,
+                hp: int, wp: int, cull: bool, counts: bool = True):
+    """K1 with the per-warp cull compiled in (`cull`, the main path's
+    kernel) or out (`vegs_blend_fwd_nocull`), for the bit-identity check
+    and its timing in chip_smoke.py only: (out, stop, counts), where
+    counts has the warp-instance pairs the warps considered, those they
+    walked and the share the cull skipped (None without `counts`: then
+    nothing waits on the card). CUDA tensors only; not counted in
+    `blend.launches`."""
+    _check_inputs(payload_f32, payload_aux, tile_starts, grid, hp, wp)
+    symbol, stats = _variant("vegs_blend_fwd", payload_f32, cull, counts)
+    stop = torch.empty((hp, wp), dtype=torch.int32, device=payload_f32.device)
+    out = _launch(payload_f32, payload_aux, tile_starts, grid, hp, wp, stop,
+                  symbol, stats)
+    return out, stop, _cull_counts(stats)
+
+
+def blend_bwd_check(payload_f32, payload_aux, tile_starts, out, dout,
+                    grid: TileGrid, cull: bool, counts: bool = True):
+    """K2 with the per-warp cull compiled in or out, as `blend_check`:
+    (dpf, dpa, counts). CUDA tensors only; not counted in
+    `blend_bwd.launches`."""
+    _check_bwd_inputs(payload_f32, payload_aux, tile_starts, out, dout, grid)
+    symbol, stats = _variant("vegs_blend_bwd", payload_f32, cull, counts)
+    dpf, dpa = _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout,
+                           grid, symbol, stats)
+    return dpf, dpa, _cull_counts(stats)
+
+
+def kernel_info(lib: str, aux_dtype: torch.dtype, pixels: int) -> dict:
+    """The main path's K1 ("blend_fwd") or K2 ("blend_bwd") for tiles of
+    `pixels` pixels and this aux dtype, as the CUDA runtime reports it:
+    registers per thread, shared memory per block (bytes), resident blocks
+    per SM, local (spilled) bytes per thread. Needs a card."""
+    fn = _entry(lib, f"vegs_{lib}_info",
+                [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    res = (ctypes.c_int * 4)()
+    kernels.check(fn(int(aux_dtype == torch.bfloat16), pixels, res),
+                  f"vegs_{lib}_info")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), res))
 
 
 class BlendFn(torch.autograd.Function):
