@@ -82,10 +82,7 @@ constexpr int MIN_BLOCKS = 3;  // resident blocks per SM the build must allow
 __constant__ const int OUT_ROW[N_RED] = {0,  1,  2,  3,  4,  5,  -1, -2, -3,
                                          6,  -4, -5, -6, -7, -8, -9, -10};
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using vegs::to_f32;
 
 __device__ __forceinline__ void put(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, size_t i, float v) {
@@ -159,16 +156,6 @@ __device__ __forceinline__ int red_row(int lane) {
 }
 
 template <typename AuxT, bool CULL>
-__device__ __forceinline__ void compute_boxes(const vegs::Stage<AuxT>& s,
-                                              float2* s_box, int nb) {
-  if constexpr (CULL) {
-    for (int j = threadIdx.x; j < nb; j += blockDim.x)
-      s_box[j] = vegs::footprint_box(s.f[0][j], s.f[1][j], s.f[2][j],
-                                     s.f[3][j], s.f[4][j], s.f[5][j]);
-  }
-}
-
-template <typename AuxT, bool CULL>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
 blend_bwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
                  const int* __restrict__ tile_starts, int64_t k, int ntx,
@@ -221,8 +208,8 @@ blend_bwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
                       min(vegs::PAD_ALIGN, end - start), vec_ok);
     if (vec_ok) vegs::cp_async_wait_all();
     __syncthreads();
-    compute_boxes<AuxT, CULL>(sh.st[0], sh.box,
-                              min(vegs::PAD_ALIGN, end - start));
+    vegs::stage_boxes<CULL>(sh.st[0], sh.box,
+                            min(vegs::PAD_ALIGN, end - start));
   }
   for (int b0 = start; b0 < end; b0 += vegs::PAD_ALIGN, buf ^= 1) {
     const int nb = min(vegs::PAD_ALIGN, end - b0);
@@ -338,8 +325,8 @@ blend_bwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
     if (vec_ok) vegs::cp_async_wait_all();
     if (__syncthreads_count(done) == static_cast<int>(blockDim.x)) break;
     if (b1 < end)
-      compute_boxes<AuxT, CULL>(sh.st[buf ^ 1], sh.box,
-                                min(vegs::PAD_ALIGN, end - b1));
+      vegs::stage_boxes<CULL>(sh.st[buf ^ 1], sh.box,
+                              min(vegs::PAD_ALIGN, end - b1));
   }
   if (stats != nullptr && lane == 0) {
     atomicAdd(&stats[0], static_cast<unsigned long long>(considered));
@@ -354,12 +341,8 @@ int launch(const float* pf, const void* pa, const int* tile_starts,
            unsigned long long* stats, void* stream) {
   constexpr size_t smem = sizeof(Shared<AuxT>);
   auto kern = blend_bwd_kernel<AuxT, CULL>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = vegs::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const bool vec = reinterpret_cast<uintptr_t>(pf) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(pa) % 16 == 0;
   kern<<<ntx * nty, tile_h * tile_w, smem,
@@ -385,24 +368,8 @@ int dispatch(const float* pf, const void* pa, int aux_bf16,
 
 template <typename AuxT>
 int info(int threads, int* res) {
-  auto kern = blend_bwd_kernel<AuxT, true>;
-  constexpr size_t smem = sizeof(Shared<AuxT>);
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  cudaFuncAttributes attr{};
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kern);
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
-                                                      smem);
-  res[0] = attr.numRegs;
-  res[1] = static_cast<int>(smem + attr.sharedSizeBytes);
-  res[2] = blocks;
-  res[3] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(e);
+  return vegs::kernel_info(blend_bwd_kernel<AuxT, true>, threads,
+                           sizeof(Shared<AuxT>), res);
 }
 
 }  // namespace

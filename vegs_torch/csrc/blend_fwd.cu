@@ -45,10 +45,7 @@ namespace {
 constexpr int N_ACCUM = 11;   // output channel 11 is the final T
 constexpr int MAX_THREADS = 1024;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using vegs::to_f32;
 
 // Dynamic shared memory: two staging buffers, the current batch's boxes,
 // one 256-entry index list per warp.
@@ -56,16 +53,6 @@ template <typename AuxT>
 size_t smem_bytes(int nwarps) {
   return 2 * sizeof(vegs::Stage<AuxT>) + vegs::PAD_ALIGN * sizeof(float2) +
          static_cast<size_t>(nwarps) * vegs::PAD_ALIGN;
-}
-
-template <typename AuxT, bool CULL>
-__device__ __forceinline__ void compute_boxes(const vegs::Stage<AuxT>& s,
-                                              float2* s_box, int nb) {
-  if constexpr (CULL) {
-    for (int j = threadIdx.x; j < nb; j += blockDim.x)
-      s_box[j] = vegs::footprint_box(s.f[0][j], s.f[1][j], s.f[2][j],
-                                     s.f[3][j], s.f[4][j], s.f[5][j]);
-  }
 }
 
 template <typename AuxT, bool CULL>
@@ -108,7 +95,7 @@ blend_fwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
                       vec_ok);
     if (vec_ok) vegs::cp_async_wait_all();
     __syncthreads();
-    compute_boxes<AuxT, CULL>(st[0], s_box, min(vegs::PAD_ALIGN, end - start));
+    vegs::stage_boxes<CULL>(st[0], s_box, min(vegs::PAD_ALIGN, end - start));
   }
   for (int b0 = start; b0 < end; b0 += vegs::PAD_ALIGN, buf ^= 1) {
     const int nb = min(vegs::PAD_ALIGN, end - b0);
@@ -165,8 +152,8 @@ blend_fwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
     if (vec_ok) vegs::cp_async_wait_all();
     if (__syncthreads_count(done) == static_cast<int>(blockDim.x)) break;
     if (b1 < end)
-      compute_boxes<AuxT, CULL>(st[buf ^ 1], s_box,
-                                min(vegs::PAD_ALIGN, end - b1));
+      vegs::stage_boxes<CULL>(st[buf ^ 1], s_box,
+                              min(vegs::PAD_ALIGN, end - b1));
   }
 
   const size_t plane = static_cast<size_t>(hp) * wp;
@@ -188,12 +175,8 @@ int launch(const float* pf, const void* pa, const int* tile_starts,
   const int threads = tile_h * tile_w;
   const size_t smem = smem_bytes<AuxT>(threads / 32);
   auto kern = blend_fwd_kernel<AuxT, CULL>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = vegs::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const bool vec = reinterpret_cast<uintptr_t>(pf) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(pa) % 16 == 0;
   kern<<<ntx * nty, threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -217,24 +200,8 @@ int dispatch(const float* pf, const void* pa, int aux_bf16,
 
 template <typename AuxT>
 int info(int threads, int* res) {
-  auto kern = blend_fwd_kernel<AuxT, true>;
-  const size_t smem = smem_bytes<AuxT>(threads / 32);
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  cudaFuncAttributes attr{};
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kern);
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
-                                                      smem);
-  res[0] = attr.numRegs;
-  res[1] = static_cast<int>(smem + attr.sharedSizeBytes);
-  res[2] = blocks;
-  res[3] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(e);
+  return vegs::kernel_info(blend_fwd_kernel<AuxT, true>, threads,
+                           smem_bytes<AuxT>(threads / 32), res);
 }
 
 }  // namespace

@@ -2,7 +2,8 @@
 // blend-backward (K2) and saturation-count (K4) kernels, and the pieces of
 // K1's and K2's walk: the conservative footprint box of an instance, the
 // thread -> pixel map with its compact warp rectangles, and the
-// asynchronous staging of a 256-instance batch.
+// asynchronous staging of a 256-instance batch; on the host, their
+// shared-memory opt-in and occupancy query.
 //
 // The kernels must reach bit-identical decisions on the same instance
 // sequence: the saturation cull is lossless only if the blend stops no later
@@ -22,6 +23,7 @@
 // `vegs_torch.ops.blend_cuda.footprint_box`.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -224,6 +226,53 @@ __device__ __forceinline__ void stage_batch(Stage<AuxT>* st,
       for (int r = 0; r < AUX_USED; ++r) st->a[r][j] = pa[r * k + g];
     }
   }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The footprint box of each of the nb staged instances, by the calling
+// block; nothing when the cull is compiled out.
+template <bool CULL, typename AuxT>
+__device__ __forceinline__ void stage_boxes(const Stage<AuxT>& s,
+                                            float2* box, int nb) {
+  if constexpr (CULL) {
+    for (int j = threadIdx.x; j < nb; j += blockDim.x)
+      box[j] = footprint_box(s.f[0][j], s.f[1][j], s.f[2][j], s.f[3][j],
+                             s.f[4][j], s.f[5][j]);
+  }
+}
+
+// ---- host side ----------------------------------------------------------------
+
+// Above 48 KB a kernel must be allowed its dynamic shared memory.
+template <typename Kern>
+inline cudaError_t allow_smem(Kern kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Registers per thread, shared memory per block (bytes), resident blocks
+// per SM and local (spill) bytes per thread of `kern` launched with
+// `threads` threads and `smem` bytes of dynamic shared memory, into
+// res[0..3], as the runtime reports them.
+template <typename Kern>
+inline int kernel_info(Kern kern, int threads, size_t smem, int* res) {
+  cudaError_t e = allow_smem(kern, smem);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kern);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                      smem);
+  res[0] = attr.numRegs;
+  res[1] = static_cast<int>(smem + attr.sharedSizeBytes);
+  res[2] = blocks;
+  res[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
 }
 
 }  // namespace vegs
