@@ -8,11 +8,13 @@ Phases, one JSON line each; any failure exits non-zero:
   2. build    -- nvcc builds kernels K1 (blend forward), K2 (blend
                  backward), K3 (segment reduce), K4 (saturation count), M1
                  and M2 from vegs_torch/csrc, in parallel; ptxas registers
-                 and shared memory per kernel, and K1's and K2's
-                 registers, shared memory and resident blocks per SM as
-                 the CUDA runtime reports them (16x16 tiles);
-  3. k4_check -- K4 against its plain PyTorch version on a saturating
-                 reduced scene (128x512, 60k Gaussians);
+                 and shared memory per kernel, and the registers, shared
+                 memory, resident blocks per SM and spills of K1, K2, K4
+                 (16x16 tiles) and K3 as the CUDA runtime reports them;
+  3. k4_check -- K4 (the main path's entry, reading the payload rows
+                 through the sorted Gaussian index) against its plain
+                 PyTorch version on a saturating reduced scene (128x512,
+                 60k Gaussians);
   4. k1_check -- K1 against its plain version at 128x512 with 30k Gaussians,
                  f32 and bf16 aux payloads;
   5. main     -- the serving path at full width: a seeded synthetic trained
@@ -27,6 +29,11 @@ Phases, one JSON line each; any failure exits non-zero:
                  footprint cull against K1 with the cull compiled out on
                  that frame (k1_cull): out and stop equal to the bit, both
                  times, the share of warp-instance pairs the cull skipped;
+                 the same for K4 (k4_cull: counts equal); and K4 on the
+                 payload rows where they lie against K4 on the JAX layout
+                 (k4_gather: counts equal; the old path -- the prepass
+                 gather, then K4 channel-major -- and the new one timed in
+                 turns);
   6. timing   -- ms per frame, K1/K4 ms at the full-width shapes (CUDA
                  events), the plain versions' ms, the bound of each kernel,
                  peak device memory; then a profile of 4 frames;
@@ -40,13 +47,20 @@ Phases, one JSON line each; any failure exits non-zero:
                  time, peak memory, launches (each kernel once per step),
                  then capacities re-probed for the densified field and a
                  profile of 2 more steps on it;
-  8. k2/k3    -- K2 and K3 against their plain versions on the first
-                 step's full-width inputs, with card, plain, bound and (K3)
-                 library times; K2 with and without its cull (k2_cull: dpf
-                 and dpa equal to the bit, both times, the skipped share);
-                 and K2's and the float32 plain version's f32 rows on the
-                 deep instances of the 32 deepest tiles against a float64
-                 walk of those tiles (k2_f64);
+  8. k2/k3/k4 -- on the first step's full-width inputs: K4 with and
+                 without its cull (k4_cull); K2 against its plain version
+                 with card, plain and bound times; K2 with and without its
+                 cull (k2_cull: dpf and dpa equal to the bit, both times,
+                 the skipped share); K2's and the float32 plain version's
+                 f32 rows on the deep instances of the 32 deepest tiles
+                 against a float64 walk of those tiles (k2_f64); K3 as the
+                 main path runs it, the gather's whole backward, against
+                 its plain version (k3_fused: card, plain and bound times,
+                 the segments' span distribution, the kernel's time by
+                 long-segment threshold, the gather's backward's device
+                 time fused and by the columns path); and K3 in the JAX
+                 contract on those columns (k3_check, with the library
+                 time);
   9. grad     -- one step's gradients (every field leaf and the means2d
                  tap) through the kernels on the card against the plain
                  versions on the CPU, on a reduced scene (128x512, 50k
@@ -76,26 +90,28 @@ each pixel sequentially with FMAs, so the sums differ in order only.
 K2, K3 and the step gradients are each held by a limit set from the
 readings of a sound run on an H100, and each check also reads a control --
 a deliberately wrong result -- which must fall outside the limit (readings
-and controls in PERF.md). K2, on the instances of tiles whose pixels all
-stop where the plain forward stops (such flip tiles at most 1%): |d| <=
-1e-4 of the largest |plain| of the f32 row, and of the aux row within the
-instance's group (its tile's 256-instance batch), plus one bf16 ulp (2^-7
-|ref|) on bf16 rows; control: the kernel's output 1% off on the instances
-after each tile's first 256. K3: |d| <= 1e-5 * (sum of |x| over the
-segment) -- the plain version adds with atomics in any order on the card;
-control: each segment's last column left out. Step gradients: relative L2
-error <= 1e-4 per leaf; control: K2's f32 rows rounded to bf16. K1 and K2
-with the cull against the same kernels without it: equal to the bit. K2's
-f32 rows on the deep instances of the 32 deepest tiles against a float64
-walk of those tiles (the float64 forward seeding it): |d| <= 1e-2 of the
-largest |float64| of the instance's 256-instance group -- the float32
-cancellation of dL = tail - cum is what is left there, and the kernel's
-compensated sums read 5.6e-3 on an H100 against the float32 plain
-version's 7.4e-3; control: the kernel's output 1% off there (1.4e-2). M2 must be
-bit-identical to its plain version. M1: |d| <= 1e-8 * (sum of |x|) -- the
-kernel and its plain version add in other orders; the sound readings on an
-H100 are at most 1.3e-10; control: the sum with the last 2^17-long block
-left out.
+and controls in PERF.md). K4 with the cull against K4 without it, and on
+the payload rows against the JAX layout: equal counts. K2, on the instances
+of tiles whose pixels all stop where the plain forward stops (such flip
+tiles at most 1%): |d| <= 1e-4 of the largest |plain| of the f32 row, and
+of the aux row within the instance's group (its tile's 256-instance batch),
+plus one bf16 ulp (2^-7 |ref|) on bf16 rows; control: the kernel's output
+1% off on the instances after each tile's first 256. K3: |d| <= 1e-5 * (sum
+of |x| over the segment) -- the plain version adds with atomics in any
+order on the card; on the fused entry's aux rows, plus one bf16 ulp of
+|ref| (both round their float32 sums once); control: each segment's last
+column left out. Step gradients: relative L2 error <= 1e-4 per leaf;
+control: K2's f32 rows rounded to bf16. K1 and K2 with the cull against the
+same kernels without it: equal to the bit. K2's f32 rows on the deep
+instances of the 32 deepest tiles against a float64 walk of those tiles
+(the float64 forward seeding it): |d| <= 1e-2 of the largest |float64| of
+the instance's 256-instance group -- the float32 cancellation of dL = tail
+- cum is what is left there, and the kernel's compensated sums read 5.6e-3
+on an H100 against the float32 plain version's 7.4e-3; control: the
+kernel's output 1% off there (1.4e-2). M2 must be bit-identical to its
+plain version. M1: |d| <= 1e-8 * (sum of |x|) -- the kernel and its plain
+version add in other orders; the sound readings on an H100 are at most
+1.3e-10; control: the sum with the last 2^17-long block left out.
 """
 
 from __future__ import annotations
@@ -158,14 +174,22 @@ def field_stage(field, cam, cfg):
                  valid=a.valid, config=cfg)
 
 
+def k4_args(st):
+    """The main path's K4 inputs of a `Staged`: the padded payload rows,
+    the sorted Gaussian index, the raw ranges, the grid."""
+    return st.pay_rows, st.rb.gidx_sorted, st.rb.raw_starts, st.grid
+
+
 def compare_k4(st):
-    """K4 vs satcount_ref on the same CUDA inputs."""
+    """K4 (the main path's entry) vs its plain version on the same CUDA
+    inputs."""
     from vegs_torch.ops import satcull
 
+    args = k4_args(st)
     grid = st.grid
-    k = satcull.satcount(st.pf_sorted, st.rb.raw_starts, grid)
+    k = satcull.satcount_gathered(*args)
     t0 = time.perf_counter()
-    ref = satcull.satcount_ref(st.pf_sorted, st.rb.raw_starts, grid)
+    ref = satcull.satcount_gathered_ref(*args)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     d = (k.long() - ref.long()).abs()
@@ -177,6 +201,62 @@ def compare_k4(st):
     return {"tiles": grid.num_tiles, "tiles_off_by_256": int((d == 256).sum()),
             "max_abs_err": int(d.max()), "kept": int(k.sum()), "raw": raw,
             "plain_ms": plain_s * 1e3}
+
+
+def k4_cull(st) -> dict:
+    """K4 with its per-warp footprint cull against K4 with the cull
+    compiled out, on the main path's inputs: counts equal (torch.equal);
+    both times; the warp-instance pairs considered, walked and the skipped
+    share."""
+    from vegs_torch.ops import satcull
+
+    args = k4_args(st)
+    on = satcull.satcount_check(*args, cull=True)
+    off = satcull.satcount_check(*args, cull=False)
+    res = {"equal": bool(torch.equal(on[0], off[0])),
+           **cull_times(lambda c: satcull.satcount_check(*args, cull=c,
+                                                         counts=False)),
+           "pairs": on[1], "pairs_nocull": off[1]}
+    if not res["equal"]:
+        raise AssertionError(f"K4 with and without the cull differ: {res}")
+    return res
+
+
+def k4_gather(st) -> dict:
+    """K4 reading the payload rows where they lie (the main path) against
+    K4 on the JAX layout (pay_rows[gidx_sorted].T, channel-major): counts
+    equal (torch.equal). Times by CUDA events, in turns old, new, new, old:
+    the new path (K4 gathered) and the old one (the prepass gather, then K4
+    channel-major), and each K4 alone."""
+    from vegs_torch.ops import satcull
+    from vegs_torch.perf.timing import cuda_ms
+
+    pay, gidx, starts, grid = k4_args(st)
+
+    def prepass():
+        return pay[gidx.long()].T.contiguous()
+
+    pf_cm = prepass()
+    new = satcull.satcount_gathered(pay, gidx, starts, grid)
+    old = satcull.satcount(pf_cm, starts, grid)
+    equal = bool(torch.equal(new, old))
+    runs = {"old_path": [], "new_path": [], "k4_cm": [], "prepass": []}
+    for turn in ("old", "new", "new", "old"):
+        if turn == "new":
+            runs["new_path"].append(cuda_ms(
+                lambda: satcull.satcount_gathered(pay, gidx, starts, grid)))
+        else:
+            runs["old_path"].append(cuda_ms(
+                lambda: satcull.satcount(prepass(), starts, grid)))
+            runs["k4_cm"].append(cuda_ms(
+                lambda: satcull.satcount(pf_cm, starts, grid)))
+            runs["prepass"].append(cuda_ms(prepass))
+    res = {"equal": equal, "slots": int(gidx.shape[0]),
+           **{f"{k}_ms": float(np.mean(v)) for k, v in runs.items()},
+           "runs": runs}
+    if not equal:
+        raise AssertionError(f"K4 gathered and channel-major differ: {res}")
+    return res
 
 
 def compare_k1(st):
@@ -213,7 +293,7 @@ def compare_k1(st):
 
 KERNEL_GROUPS = (("K1 blend_fwd", ("blend_fwd_kernel",)),
                  ("K2 blend_bwd", ("blend_bwd_kernel",)),
-                 ("K3 segreduce", ("segreduce_kernel",)),
+                 ("K3 segreduce", ("segreduce_kernel", "rows_kernel")),
                  ("K4 satcount", ("satcount_kernel",)),
                  ("conv (SSIM)", ("conv", "Conv", "cudnn", "implicit_gemm")),
                  ("sort", ("sort", "Sort", "radix", "Radix")),
@@ -302,12 +382,12 @@ def staged_loss(field, tap, cam, gt, normal, sh_degree, bg, opt_cfg,
 
 
 def step_kernel_inputs(trainer, cam, it, dev):
-    """K2's and K3's inputs of the step `trainer` would take next on `cam`:
-    the same loss, its gradient at the blend's padded output (K2's dout),
-    and K3's columns from K2's output on them (no Adam update). Returns
-    (K2 args, K3 args, the loss)."""
+    """K2's, K3's and K4's inputs of the step `trainer` would take next on
+    `cam`: the same loss, its gradient at the blend's padded output (K2's
+    dout), K3's cotangents from K2's output on them (no Adam update), and
+    K4's inputs (`k4_args` of the `Staged`). Returns (K2 args, K3 args,
+    the `Staged`, the loss)."""
     from vegs_torch.ops import blend_cuda
-    from vegs_torch.ops.rasterize import cotangent_columns
 
     field = trainer.state.field
     tap = torch.zeros((field.capacity, 2), device=dev, requires_grad=True)
@@ -318,6 +398,8 @@ def step_kernel_inputs(trainer, cam, it, dev):
         field, tap, cam.device_params(dev), gt, normal,
         trainer._active_sh_degree(it), trainer.bg, trainer.cfg.opt,
         trainer.raster_cfg)
+    if st.sat_counts is None:
+        raise AssertionError("the training step should run the sat cull")
     (dout,) = torch.autograd.grad(loss, out_p)
     k2_args = (st.payload_f32.detach(), st.payload_aux.detach(),
                st.binned.tile_starts, out_p.detach(), dout.contiguous(),
@@ -326,9 +408,9 @@ def step_kernel_inputs(trainer, cam, it, dev):
     # the segment ends as `stage` gives them to the gather (the dummy row n
     # gets an empty segment)
     ends = torch.cat([st.binned.gauss_ends, st.binned.gauss_ends[-1:]])
-    k3_args = cotangent_columns(dpf, dpa, st.binned.order, ends)
+    k3_args = (dpf, dpa, st.binned.order, ends)
     torch.cuda.synchronize()
-    return k2_args, k3_args, float(loss.detach())
+    return k2_args, k3_args, st, float(loss.detach())
 
 
 def k2_readings(kern, ref, tile_starts, grid, keep, ulp):
@@ -517,12 +599,12 @@ def k2_float64(k2_args) -> dict:
     return res
 
 
-def compare_k3(k3_args):
-    """K3 vs segment_reduce_ref (index_add_, atomics on the card) on the
-    same CUDA inputs; the tolerance scales with each segment's |x| sum."""
+def compare_k3(cols, starts, ends):
+    """K3 in the JAX contract vs segment_reduce_ref (index_add_, atomics
+    on the card) on the same CUDA inputs; the tolerance scales with each
+    segment's |x| sum."""
     from vegs_torch.ops import segreduce
 
-    cols, starts, ends = k3_args
     got = segreduce.segment_reduce_cols(cols, starts, ends)
     t0 = time.perf_counter()
     ref = segreduce.segment_reduce_ref(cols, starts, ends)
@@ -544,6 +626,97 @@ def compare_k3(k3_args):
             "rows": int(cols.shape[0]), "summed": int(ends[-1] - starts[0]),
             "max_abs_err": float(d.max()), "reading": reading(got),
             "control_reading": reading(short), "plain_ms": plain_s * 1e3}
+
+
+def k3_library(d_pf, d_pa, gidx, rows):
+    """The payload gather's backward as autograd's own backward of
+    `pay[gidx]` computes it: one `index_add_` of the channel-major
+    cotangents by `gidx` per table ([8 | 16, rows] f32, channel-major; the
+    aux half added in float32)."""
+    f = torch.zeros((8, rows), device=d_pf.device).index_add_(1, gidx, d_pf)
+    a = torch.zeros((16, rows), device=d_pf.device).index_add_(
+        1, gidx, d_pa.float())
+    return f, a
+
+
+def compare_k3_fused(k3_args, gidx):
+    """K3 as the main path runs it (`gather_expand_bwd`) vs its plain
+    version on the same CUDA inputs. Readings per row set, of each
+    segment's |x| sum: the f32 rows |d|, the aux rows |d| less one bf16 ulp
+    of |ref| (the two sums round to bf16 apart); the control is the plain
+    sum with each segment's last row left out. The library yardstick
+    (`k3_library` by the gather's `gidx`) is held the same way against
+    the kernel on rows 0..n-1 (the dummy row n gathers the tail slots,
+    and K3 gives it an empty segment)."""
+    from vegs_torch.ops import segreduce
+
+    d_pf, d_pa, order, ends = k3_args
+    got = segreduce.gather_expand_bwd(*k3_args)
+    t0 = time.perf_counter()
+    ref = segreduce.gather_expand_bwd_ref(*k3_args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    cols, starts, _ = segreduce.cotangent_columns(*k3_args)
+    mag = segreduce.segment_reduce_ref(cols.abs(), starts, ends).T
+    short = segreduce.segment_reduce_ref(
+        cols, starts, torch.maximum(ends - 1, starts)).T
+    ulp = BF16_ULP if d_pa.dtype == torch.bfloat16 else 0.0
+    halves = {"f32_rows": (slice(0, 8), 0.0), "aux_rows": (slice(8, 24), ulp)}
+
+    def reading(x, r, sl, u):
+        d = ((x.float() - r.float()).abs() - u * r.float().abs()).clamp(min=0)
+        return float((d / mag[:x.shape[0], sl].clamp(min=1e-30)).max())
+
+    n = ends.shape[0] - 1
+    lib = k3_library(d_pf, d_pa, gidx, n + 1)
+
+    res = {"segments": int(ends.shape[0]), "rows": int(ends[-1]),
+           "live_rows": int((order[:int(ends[-1])] < d_pf.shape[1]).sum()),
+           "aux": str(d_pa.dtype), "plain_ms": plain_s * 1e3,
+           "layout": {"dpf": list(got[0].stride()), "dpa": list(got[1].stride()),
+                      "contiguous": all(x.is_contiguous() for x in got)}}
+    for name, (sl, u) in halves.items():
+        i = 0 if name == "f32_rows" else 1
+        if not torch.isfinite(got[i]).all():
+            raise AssertionError(f"fused K3 {name} not finite")
+        ctl = short[:, sl].to(got[i].dtype)
+        res[name] = {"reading": reading(got[i], ref[i], sl, u),
+                     "control_reading": reading(ctl, ref[i], sl, u),
+                     "library_reading": reading(
+                         lib[i][:, :n].T.to(got[i].dtype), got[i][:n], sl, u),
+                     "max_abs_err": float((got[i].float()
+                                           - ref[i].float()).abs().max())}
+    res["max_abs_err"] = max(res[n]["max_abs_err"] for n in halves)
+    if not res["layout"]["contiguous"]:
+        raise AssertionError(f"fused K3 outputs not contiguous: {res}")
+    return res
+
+
+def gather_bwd_times(k3_args) -> dict:
+    """The gather's backward two ways on the same inputs, the card's own
+    time per call (torch.profiler) and its device operations, in turns:
+    K3 as the main path runs it (the cotangents staged slot-major, then
+    the reduce), and the columns path (cotangent_columns, K3 on the
+    columns, the transposed views and the aux cast)."""
+    from vegs_torch.ops import segreduce
+    from vegs_torch.perf.timing import device_profile
+
+    aux = k3_args[1].dtype
+
+    def columns_path():
+        out = segreduce.segment_reduce_cols(
+            *segreduce.cotangent_columns(*k3_args))
+        return out[:8].T, out[8:].T.to(aux)
+
+    runs = {"fused": [], "columns": []}
+    for name in ("columns", "fused", "fused", "columns"):
+        fn = (columns_path if name == "columns"
+              else lambda: segreduce.gather_expand_bwd(*k3_args))
+        p = device_profile(fn)
+        runs[name].append((p["device_ms"], p["device_ops"]))
+    return {name: {"device_ms": float(np.mean([r[0] for r in rs])),
+                   "device_ops": rs[0][1], "runs_ms": [r[0] for r in rs]}
+            for name, rs in runs.items()}
 
 
 def grad_check(dev, n=50_000, seed=SEED):
@@ -619,10 +792,18 @@ def grad_check(dev, n=50_000, seed=SEED):
             "card_s": times["card"], "plain_cpu_s": times["plain"]}
 
 
+def main_counters() -> dict:
+    """The launch counters of the main paths' kernels: K1 and K2 (blend),
+    K3 (the gather's backward), K4 (the sat count on the payload rows)."""
+    from vegs_torch.ops import blend_cuda, satcull, segreduce
+
+    return {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
+            "K3": segreduce.gather_expand_bwd, "K4": satcull.satcount_gathered}
+
+
 def train_phase(scene, dev, card) -> dict:
     """The training path at full width on `scene`'s field (see phase 7)."""
     from vegs_torch.config import VegsConfig
-    from vegs_torch.ops import blend_cuda, satcull, segreduce
     from vegs_torch.render import render
     from vegs_torch.train import Trainer
     from vegs_torch.utils.synthetic import unit_normal_map
@@ -643,12 +824,11 @@ def train_phase(scene, dev, card) -> dict:
     tcfg = VegsConfig()
     tcfg.opt.densification_interval = DENSIFY_EVERY
     trainer = Trainer(tcfg, scene, raster_cfg=cfg, device=dev)
-    k2_args, k3_args, k_loss = step_kernel_inputs(
+    k2_args, k3_args, k4_st, k_loss = step_kernel_inputs(
         trainer, cams[TRAIN_CAMS[0]], TRAIN_FIRST_IT, dev)
     setup_s = time.perf_counter() - t0
 
-    counters = {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
-                "K3": segreduce.segment_reduce_cols, "K4": satcull.satcount}
+    counters = main_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -678,8 +858,8 @@ def train_phase(scene, dev, card) -> dict:
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss not finite and descending: {losses}")
     if abs(k_loss - losses[0]) > 1e-6 * abs(losses[0]):
-        raise AssertionError(f"the loss of K2's and K3's inputs {k_loss} is "
-                             f"not the first step's {losses[0]}")
+        raise AssertionError(f"the loss of K2's, K3's and K4's inputs {k_loss} "
+                             f"is not the first step's {losses[0]}")
     for st in steps:
         if any(v != 1 for v in st["launches"].values()):
             raise AssertionError(f"a step did not launch each kernel once: {st}")
@@ -719,7 +899,7 @@ def train_phase(scene, dev, card) -> dict:
         raise AssertionError(f"steps on the densified field: {after}")
     emit("train_profile", card=card, steps=2,
          loss=[m["loss"] for m in after], **prof)
-    res["k2_args"], res["k3_args"] = k2_args, k3_args
+    res["k2_args"], res["k3_args"], res["k4_st"] = k2_args, k3_args, k4_st
     return res
 
 
@@ -853,15 +1033,13 @@ def m1_check(data, card) -> dict:
 def perf_phase(dev, card) -> dict:
     """The measurement path (see phase 10). Returns the M1 and M2 check
     lines and the launches of every kernel in the path."""
-    from vegs_torch.ops import blend_cuda, satcull, segreduce
     from vegs_torch.perf import micro3, refscale, roofline
 
     t0 = time.perf_counter()
     data = micro3.make_data(dev)
     res = {"M2": m2_check(data, card), "M1": m1_check(data, card)}
-    counters = {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
-                "K3": segreduce.segment_reduce_cols, "K4": satcull.satcount,
-                "M1": micro3.psum_consume, "M2": micro3.transpose}
+    counters = {**main_counters(), "M1": micro3.psum_consume,
+                "M2": micro3.transpose}
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -893,7 +1071,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from vegs_torch import kernels
-    from vegs_torch.ops import blend_cuda, satcull
+    from vegs_torch.ops import blend_cuda, satcull, segreduce
     from vegs_torch.ops.rasterize import (RasterizeConfig,
                                           SAT_MIN_SLOTS_PER_TILE, stage)
     from vegs_torch.perf import roofline
@@ -922,6 +1100,9 @@ def main() -> int:
     occupancy = {f"{lib} {dt}": blend_cuda.kernel_info(lib, dt, 256)
                  for lib in ("blend_fwd", "blend_bwd")
                  for dt in (torch.bfloat16, torch.float32)}
+    occupancy["satcount"] = satcull.kernel_info(256)
+    occupancy.update({f"segreduce {dt}": segreduce.kernel_info(dt)
+                      for dt in (torch.bfloat16, torch.float32)})
     emit("build", seconds=b["seconds"], built=b["built"], ptxas=ptxas,
          occupancy_16x16=occupancy,
          dir=str(kernels.build_dir().relative_to(HERE)))
@@ -985,15 +1166,15 @@ def main() -> int:
         render(views[0], scene.gaussians, config=cfg._replace(forward_only=True))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    blend_cuda.blend.launches = 0
-    satcull.satcount.launches = 0
+    counters = main_counters()
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     frames = render_frames(scene, n_interp=n_interp, max_frames=max_frames,
                            raster_cfg=cfg)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    render_launches = {"K1": blend_cuda.blend.launches,
-                       "K4": satcull.satcount.launches}
+    render_launches = {k: counters[k].launches for k in ("K1", "K4")}
     peak_mem = torch.cuda.max_memory_allocated()
     n_frames = sum(len(f) for f in frames.values())
     if n_frames < 8:
@@ -1050,6 +1231,12 @@ def main() -> int:
         k1c = k1_cull(st)
         emit("k1_cull", scene="376x1408, 2,233,571 Gaussians", aux="bf16",
              card=card, **k1c)
+        k4c = k4_cull(st)
+        emit("k4_cull", scene="376x1408, 2,233,571 Gaussians, first frame",
+             card=card, **k4c)
+        k4g = k4_gather(st)
+        emit("k4_gather", scene="376x1408, 2,233,571 Gaussians, first frame",
+             card=card, **k4g)
 
         # -- 6. timing at the full-width shapes --------------------------------
         grid = st.grid
@@ -1057,15 +1244,13 @@ def main() -> int:
         ts = st.binned.tile_starts
         k1_ms = cuda_ms(lambda: blend_cuda.blend(
             st.payload_f32, st.payload_aux, ts, grid, hp, wp))
-        k4_ms = cuda_ms(lambda: satcull.satcount(st.pf_sorted,
-                                                 st.rb.raw_starts, grid))
+        k4_ms = cuda_ms(lambda: satcull.satcount_gathered(*k4_args(st)))
         # bounds: the work this frame's inputs need, from the plain
         # versions' records
         k1_pairs, k4_pairs = {}, {}
         blend_cuda.blend_ref_tiles(st.payload_f32, st.payload_aux, ts, grid,
                                    hp, wp, pairs=k1_pairs)
-        satcull.satcount_ref(st.pf_sorted, st.rb.raw_starts, grid,
-                             pairs=k4_pairs)
+        satcull.satcount_gathered_ref(*k4_args(st), pairs=k4_pairs)
         k1_bytes, k1_ops = roofline.k1_work(
             k1_pairs, st.payload_aux.element_size(), grid.num_tiles, hp, wp)
         k4_bytes, k4_ops = roofline.k4_work(k4_pairs, grid.num_tiles)
@@ -1100,8 +1285,12 @@ def main() -> int:
     # -- 7. the training path at full width ---------------------------------
     train = train_phase(scene, dev, card)
 
-    # -- 8. K2 and K3 on the first step's inputs -----------------------------
+    # -- 8. K2, K3 and K4 on the first step's inputs --------------------------
     k2_args, k3_args = train.pop("k2_args"), train.pop("k3_args")
+    step_st = train.pop("k4_st")
+    k4c_step = k4_cull(step_st)
+    emit("k4_cull", scene="376x1408, 2,233,571 Gaussians, first train step",
+         card=card, **k4c_step)
     k2 = compare_k2(k2_args)
     k2_ms = cuda_ms(lambda: blend_cuda.blend_bwd(*k2_args))
     pf, pa, ts2, out2, dout2, grid2 = k2_args
@@ -1127,26 +1316,49 @@ def main() -> int:
     hold("K2 deep f32 rows against float64", k2x["kernel"]["group"],
          K2_F64_RTOL, k2x["control"]["group"])
 
-    from vegs_torch.ops import segreduce
+    # K3 as the main path runs it: the gather's whole backward
+    gidx = step_st.binned.gidx
+    k3f = compare_k3_fused(k3_args, gidx)
+    k3_ms = cuda_ms(lambda: segreduce.gather_expand_bwd(*k3_args))
+    d_pf, d_pa, order, ends = k3_args
+    k3_lib_ms = cuda_ms(lambda: k3_library(d_pf, d_pa, gidx, ends.shape[0]))
+    k3f_bytes, k3f_ops = roofline.k3_fused_work(k3f["rows"], ends.shape[0],
+                                                d_pa.element_size())
+    k3f_bound, k3f_by = roofline.bound_ms(roofline.Work(k3f_bytes, k3f_ops))
+    k3_ways = gather_bwd_times(k3_args)
+    emit("k3_fused", scene="376x1408, 2,233,571 Gaussians, first train step",
+         card=card, ms=k3_ms, bound_ms=k3f_bound, bound_by=k3f_by,
+         bytes=k3f_bytes, ops=k3f_ops, limit=K3_RTOL, library_ms=k3_lib_ms,
+         spans=segreduce.span_stats(ends), gather_bwd=k3_ways, **k3f)
+    for rows in ("f32_rows", "aux_rows"):
+        hold(f"K3 fused {rows}", k3f[rows]["reading"], K3_RTOL,
+             k3f[rows]["control_reading"])
+        hold(f"K3 library {rows}", k3f[rows]["library_reading"], K3_RTOL)
 
-    k3 = compare_k3(k3_args)
-    cols, starts, ends = k3_args
-    k3_ms = cuda_ms(lambda: segreduce.segment_reduce_cols(*k3_args))
+    # K3 in the JAX contract, on the columns the fused kernel no longer needs
+    k3c_args = segreduce.cotangent_columns(*k3_args)
+    k3 = compare_k3(*k3c_args)
+    cols, starts, ends = k3c_args
+    k3c_ms = cuda_ms(lambda: segreduce.segment_reduce_cols(*k3c_args))
     total = int(ends[-1])
     data = cols[:, :total].contiguous()
     lengths = (ends - starts).long().expand(cols.shape[0], -1).contiguous()
     lib = torch.segment_reduce(data, "sum", lengths=lengths, axis=1)
-    lib_err = float((lib - segreduce.segment_reduce_cols(*k3_args)).abs().max())
-    k3_lib_ms = cuda_ms(lambda: torch.segment_reduce(
+    lib_err = float((lib - segreduce.segment_reduce_cols(*k3c_args)
+                     ).abs().max())
+    k3c_lib_ms = cuda_ms(lambda: torch.segment_reduce(
         data, "sum", lengths=lengths, axis=1))
     k3_bytes, k3_ops = roofline.k3_work(cols.shape[0], total, starts.shape[0])
     k3_bound, k3_by = roofline.bound_ms(roofline.Work(k3_bytes, k3_ops))
     emit("k3_check", scene="376x1408, 2,233,571 Gaussians, first train step",
-         card=card, ms=k3_ms, library_ms=k3_lib_ms, library_max_abs_err=lib_err,
-         bound_ms=k3_bound, bound_by=k3_by, bytes=k3_bytes, ops=k3_ops,
-         limit=K3_RTOL, **k3)
+         card=card, ms=k3c_ms, library_ms=k3c_lib_ms,
+         library_max_abs_err=lib_err, bound_ms=k3_bound, bound_by=k3_by,
+         bytes=k3_bytes, ops=k3_ops, limit=K3_RTOL, **k3)
     hold("K3", k3["reading"], K3_RTOL, k3["control_reading"])
-    del k2_args, k3_args, data, lengths, lib
+    k3_contract = {"ms": k3c_ms, "plain_ms": k3["plain_ms"],
+                   "bound_ms": k3_bound, "bound_by": k3_by,
+                   "library_ms": k3c_lib_ms, "max_abs_err": k3["max_abs_err"]}
+    del k2_args, k3_args, k3c_args, cols, data, lengths, lib, step_st, gidx
 
     # -- 9. one step's gradients: kernels against plain versions -------------
     grad = grad_check(dev)
@@ -1190,16 +1402,24 @@ def main() -> int:
          "source": "vegs_torch/csrc/segreduce.cu",
          "replaces": "vegs_tpu/ops/segreduce.py:46",
          "launches": launches["K3"], "matches_plain": True,
-         "max_abs_err": k3["max_abs_err"],
-         "ms": k3_ms, "plain_ms": k3["plain_ms"],
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms},
+         "entry": "gather_expand_bwd (the gather's whole backward)",
+         "max_abs_err": k3f["max_abs_err"],
+         "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
+         "ms": k3_ms, "plain_ms": k3f["plain_ms"],
+         "bound_ms": k3f_bound, "bound_by": k3f_by, "library_ms": k3_lib_ms,
+         "library": "index_add_ of d_pf and d_pa by gidx (autograd's own)",
+         "device_ms_columns_path": k3_ways["columns"]["device_ms"],
+         "jax_contract": k3_contract},
         {"name": "K4 satcount", "route": "cuda",
          "source": "vegs_torch/csrc/satcount.cu",
          "replaces": "vegs_tpu/ops/satcull.py:65",
          "launches": launches["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
-         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
+         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
+         "ms_nocull": k4c["ms_nocull"],
+         "cull_skipped_share": k4c["pairs"]["skipped_share"],
+         "old_path_ms": k4g["old_path_ms"], "new_path_ms": k4g["new_path_ms"]},
         {"name": "M1 blocksum", "route": "cuda",
          "source": "vegs_torch/csrc/blocksum.cu",
          "replaces": "perf/micro3_r02.py:56",

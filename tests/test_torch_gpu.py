@@ -6,7 +6,9 @@ a fixture, at run time). Run on a machine with a card:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 
 Tolerances as in chip_smoke.py: K4 counts equal (a tile may differ by
-exactly one 256-slot window); K1 |d| <= 1e-5 + 1e-4 |ref| outside pixels
+exactly one 256-slot window), and equal to the bit between the culled and
+unculled builds and between the main path's gathered input and the JAX
+layout; K1 |d| <= 1e-5 + 1e-4 |ref| outside pixels
 whose stop index differs, those at most 0.1% of the pixels; K2 and K3 and
 the training step's gradients as stated in their tests, each limit set
 from the readings on an H100 (PERF.md); M2 bit-identical to its plain
@@ -22,7 +24,7 @@ import torch
 
 from vegs_torch import geometry
 from vegs_torch.convert import camera_params_from_numpy
-from vegs_torch.ops import blend_cuda, satcull
+from vegs_torch.ops import blend_cuda, satcull, segreduce
 from vegs_torch.ops.rasterize import RasterizeConfig, rasterize, stage
 
 pytestmark = pytest.mark.gpu
@@ -80,11 +82,58 @@ def test_blend_kernel_matches_plain(cuda, aux):
 def test_satcount_kernel_matches_plain(cuda):
     arrays, cam = _scene(cuda, scale_range=(0.1, 0.6))
     st = stage(*arrays, cam, config=CFG)
-    k = satcull.satcount(st.pf_sorted, st.rb.raw_starts, st.grid)
-    ref = satcull.satcount_ref(st.pf_sorted, st.rb.raw_starts, st.grid)
+    args = (st.pay_rows, st.rb.gidx_sorted, st.rb.raw_starts, st.grid)
+    k = satcull.satcount_gathered(*args)
+    ref = satcull.satcount_gathered_ref(*args)
     d = (k.long() - ref.long()).abs()
     assert bool(((d == 0) | (d == 256)).all())
     assert int(k.sum()) < int(st.rb.num_real)  # the scene saturates
+    assert torch.equal(k, st.sat_counts)
+
+
+@pytest.mark.parametrize("tiles", [(16, 16), (16, 32)])
+def test_satcount_cull_and_layouts_bit_identical(cuda, tiles):
+    """K4 with its per-warp cull equals K4 with the cull compiled out, and
+    the main path's entry (payload rows read through gidx_sorted) equals
+    the JAX layout's (channel-major rows gathered first), count for count,
+    on a saturating scene of large splats and on one of smaller splats;
+    without the cull the warps walk every in-range pair they consider, and
+    on the smaller splats the cull skips some."""
+    th, tw = tiles
+    for scale_range in ((0.1, 0.6), (0.05, 0.4)):
+        arrays, cam = _scene(cuda, scale_range=scale_range)
+        st = stage(*arrays, cam, config=CFG._replace(
+            payload_dtype="f32", tile_h=th, tile_w=tw))
+        args = (st.pay_rows, st.rb.gidx_sorted, st.rb.raw_starts, st.grid)
+        n0 = satcull.satcount_gathered.launches
+        on, c_on = satcull.satcount_check(*args, cull=True)
+        off, c_off = satcull.satcount_check(*args, cull=False)
+        assert satcull.satcount_gathered.launches == n0
+        main = satcull.satcount_gathered(*args)
+        pf_cm = st.pay_rows[st.rb.gidx_sorted.long()].T.contiguous()
+        m0 = satcull.satcount.launches
+        cm = satcull.satcount(pf_cm, st.rb.raw_starts, st.grid)
+        assert satcull.satcount.launches == m0 + 1
+        torch.cuda.synchronize()
+        print(f"K4 {th}x{tw} scales {scale_range}: kept {int(on.sum())} of "
+              f"{int(st.rb.num_real)}, cull {c_on}, no cull {c_off}")
+        assert torch.equal(on, off) and torch.equal(main, on)
+        assert torch.equal(cm, on)
+        assert c_off["walked"] == c_off["warp_instances"] > 0
+        assert c_on["warp_instances"] == c_off["warp_instances"]
+        if scale_range == (0.1, 0.6):
+            assert int(on.sum()) < int(st.rb.num_real)  # the scene saturates
+        else:
+            assert c_on["skipped_share"] > 0.05
+
+
+def test_satcount_refuses_misaligned_rows(cuda):
+    arrays, cam = _scene(cuda, n=500)
+    st = stage(*arrays, cam, config=CFG)
+    rows = torch.zeros(st.pay_rows.numel() + 1, device=cuda)[1:].view(-1, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        satcull.satcount_gathered(rows, st.rb.gidx_sorted, st.rb.raw_starts,
+                                  st.grid)
 
 
 def test_satcull_bit_identical_on_card(cuda):
@@ -97,18 +146,29 @@ def test_satcull_bit_identical_on_card(cuda):
 
 
 def test_cuda_tensors_never_reach_plain_versions(cuda, monkeypatch):
+    """A training-style forward and backward on the card launches K4, K1,
+    K2 and K3 once each and never calls a plain version."""
     def refuse(*a, **k):
         raise AssertionError("plain version called with CUDA tensors")
 
-    monkeypatch.setattr(blend_cuda, "blend_ref_tiles", refuse)
-    monkeypatch.setattr(satcull, "satcount_ref", refuse)
+    for mod, name in ((blend_cuda, "blend_ref_tiles"),
+                      (blend_cuda, "blend_bwd_ref_tiles"),
+                      (satcull, "satcount_ref"),
+                      (satcull, "satcount_gathered_ref"),
+                      (segreduce, "segment_reduce_ref"),
+                      (segreduce, "gather_expand_bwd_ref")):
+        monkeypatch.setattr(mod, name, refuse)
     arrays, cam = _scene(cuda)
-    b0, s0 = blend_cuda.blend.launches, satcull.satcount.launches
-    out = rasterize(*arrays, cam, config=CFG)
+    leaves = [x.clone().requires_grad_(True) for x in arrays]
+    counters = (blend_cuda.blend, blend_cuda.blend_bwd,
+                satcull.satcount_gathered, segreduce.gather_expand_bwd)
+    before = [c.launches for c in counters]
+    out = rasterize(*leaves, cam, config=CFG._replace(forward_only=False))
+    out.rgb.square().mean().backward()
     torch.cuda.synchronize()
-    assert blend_cuda.blend.launches == b0 + 1
-    assert satcull.satcount.launches == s0 + 1
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
     assert torch.isfinite(out.rgb).all()
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
 
 
 def test_card_render_matches_cpu_render(cuda):
@@ -264,6 +324,18 @@ def test_blend_cull_bit_identical(cuda, aux):
         assert b_on["skipped_share"] > 0.05
 
 
+def test_satcount_segreduce_occupancy(cuda):
+    """The runtime's view of K4 at 16x16 tiles and of K3: no spills, at
+    least four K4 blocks and four K3 blocks per SM."""
+    infos = {"K4": satcull.kernel_info(256),
+             **{f"K3 {dt}": segreduce.kernel_info(dt)
+                for dt in (torch.bfloat16, torch.float32)}}
+    for name, info in infos.items():
+        print(f"{name}: {info}")
+        assert info["local_bytes"] == 0 and info["registers"] > 0
+        assert info["blocks_per_sm"] >= 4
+
+
 @pytest.mark.parametrize("lib", ["blend_fwd", "blend_bwd"])
 def test_blend_kernel_occupancy(cuda, lib):
     """The runtime's view of K1 and K2 at 16x16 tiles: no spills, three K2
@@ -274,6 +346,50 @@ def test_blend_kernel_occupancy(cuda, lib):
         print(f"{lib} {dtype}: {info}")
         assert info["local_bytes"] == 0 and info["registers"] > 0
         assert info["blocks_per_sm"] >= (3 if lib == "blend_bwd" else 4)
+
+
+K3_RTOL = 1e-5  # K3 against its plain version, of the segment's sum of |x|
+
+
+@pytest.mark.parametrize("aux", ["f32", "bf16"])
+def test_gather_expand_bwd_kernel_matches_plain(cuda, aux):
+    """The main path's K3 (the gather's whole backward) against its plain
+    version on the CPU: f32 rows within 1e-5 of each segment's sum of |x|
+    and equal to the bit on segments a lane sums alone (at most 32 rows,
+    segreduce.cu's LONG_ROWS: both add in raw order from 0); aux rows within
+    the same plus one bf16 ulp of |ref|. Segment spans from 0 to 300 rows,
+    a fifth of the rows dead."""
+    rng = np.random.default_rng(5)
+    ng, k_pad = 200_000, 1 << 19
+    span = rng.poisson(1.3, ng) * (rng.random(ng) > 0.3)
+    span[rng.choice(ng, 40, replace=False)] = rng.integers(33, 300, 40)
+    ends = torch.from_numpy(np.cumsum(span).astype(np.int32))
+    rows = int(ends[-1])
+    order = np.where(rng.random(rows + 1000) < 0.2, k_pad,
+                     rng.permutation(k_pad)[:rows + 1000]).astype(np.int32)
+    order = torch.from_numpy(order)
+    dt = torch.float32 if aux == "f32" else torch.bfloat16
+    d_pf = torch.from_numpy(rng.normal(size=(8, k_pad)).astype(np.float32))
+    d_pa = torch.from_numpy(rng.normal(size=(16, k_pad)).astype(np.float32)
+                            ).to(dt)
+    n0 = segreduce.gather_expand_bwd.launches
+    kf, ka = segreduce.gather_expand_bwd(d_pf.to(cuda), d_pa.to(cuda),
+                                         order.to(cuda), ends.to(cuda))
+    assert segreduce.gather_expand_bwd.launches == n0 + 1
+    assert kf.is_contiguous() and ka.is_contiguous() and ka.dtype == dt
+    rf, ra = segreduce.gather_expand_bwd_ref(d_pf, d_pa, order, ends)
+    mf, ma = segreduce.gather_expand_bwd_ref(d_pf.abs(), d_pa.abs(), order,
+                                             ends)
+    ulp = 2.0 ** -7 if aux == "bf16" else 0.0
+    for k, r, m, u in ((kf.cpu(), rf, mf, 0.0),
+                       (ka.cpu().float(), ra.float(), ma.float(), ulp)):
+        d = ((k - r).abs() - u * r.abs()).clamp(min=0)
+        reading = float((d / m.clamp(min=1e-30)).max())
+        print(f"K3 fused {aux}: reading {reading}")
+        assert reading <= K3_RTOL
+    short = torch.from_numpy(span <= 32)
+    assert torch.equal(kf.cpu()[short], rf[short])
+    assert int((~short).sum()) == 40
 
 
 def test_segreduce_kernel_matches_plain(cuda):

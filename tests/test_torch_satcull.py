@@ -1,9 +1,11 @@
 """Saturation prepass of the port (vegs_torch/ops/satcull.py) against
 vegs_tpu: `satcount_ref` (the plain version of kernel K4) must equal both
 the JAX Pallas `satcount` (interpret mode) and the JAX loop oracle
-`satcount_np` EXACTLY, on the saturating scene of tests/test_satcull.py;
-and the port's render with the cull on must be bit-identical to the same
-render with it off (the cull is lossless)."""
+`satcount_np` EXACTLY, on the saturating scene of tests/test_satcull.py,
+and so must the main path's entry `satcount_gathered`, which reads the
+padded payload rows through the sorted Gaussian index; and the port's
+render with the cull on must be bit-identical to the same render with it
+off (the cull is lossless)."""
 
 import numpy as np
 import pytest
@@ -72,6 +74,33 @@ def test_satcount_ref_matches_jax_kernel_and_oracle():
     assert ref.sum() - 256 * busy < pairs["slots"] <= ref.sum()
     assert pairs["walked"] <= 256 * pairs["slots"]
     assert 0 < pairs["included"] < pairs["tested"] <= pairs["walked"]
+
+
+def test_satcount_gathered_plain_matches_jax_kernel():
+    """The main path's K4 entry on the CPU (the plain version of the
+    gathered kernel) against the JAX Pallas kernel on the channel-major
+    prepass gather jnp.pad(pay)[gidx_sorted].T: equal counts."""
+    cam, means, quats, scales, opac, shs = _scene()
+    grid = jbin.TileGrid.for_image(H, W)
+    proj = jproject(means, jgeo.cov6_from_scaling_rotation(scales, quats),
+                    opac, shs, cam)
+    rb = jbin.bin_raw(proj.means2d, proj.depths, proj.radii_xy, grid, K,
+                      conics=proj.conics, opacities=proj.opacities)
+    n = means.shape[0]
+    pay = jnp.pad(jnp.concatenate(
+        [proj.means2d, proj.conics, proj.opacities[:, None],
+         proj.depths[:, None], jnp.zeros((n, 1), jnp.float32)], axis=1),
+        ((0, 1), (0, 0)))
+    want = np.asarray(jsat.satcount(pay[rb.gidx_sorted].T, rb.raw_starts, grid))
+    tgrid = tbin.TileGrid(*grid)
+    got = tsat.satcount_gathered(_t(pay), _t(rb.gidx_sorted),
+                                 _t(rb.raw_starts), tgrid).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() < np.diff(np.asarray(rb.raw_starts)).sum()
+    assert tsat.satcount_gathered.launches == 0  # no kernel on the CPU
+    with pytest.raises(ValueError, match=r"\[n \+ 1, 8\]"):
+        tsat.satcount_gathered(_t(pay)[:, :6], _t(rb.gidx_sorted),
+                               _t(rb.raw_starts), tgrid)
 
 
 def test_satcount_rejects_unaligned_grid():

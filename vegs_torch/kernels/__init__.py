@@ -107,3 +107,17 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def kernel_info(name: str, *args: int) -> dict:
+    """A main-path kernel of library `name` as the CUDA runtime reports it,
+    through its `vegs_<name>_info(*args, res)` export: registers per
+    thread, shared memory per block (bytes), resident blocks per SM, local
+    (spilled) bytes per thread. Needs a card."""
+    fn = getattr(load(name), f"vegs_{name}_info")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    res = (ctypes.c_int * 4)()
+    check(fn(*args, res), f"vegs_{name}_info")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), res))

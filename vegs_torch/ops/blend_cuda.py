@@ -469,7 +469,7 @@ def blend_bwd(payload_f32, payload_aux, tile_starts, out, dout,
 blend_bwd.launches = 0  # K2 launches: incremented where the kernel is launched
 
 
-def _variant(symbol: str, payload_f32, cull: bool, counts: bool):
+def cull_variant(symbol: str, payload_f32, cull: bool, counts: bool):
     """The C entry with the cull compiled in or out, and a zeroed [2] int64
     buffer for its counts (or None)."""
     if payload_f32.device.type != "cuda":
@@ -479,7 +479,7 @@ def _variant(symbol: str, payload_f32, cull: bool, counts: bool):
     return symbol if cull else symbol + "_nocull", stats
 
 
-def _cull_counts(stats):
+def cull_counts(stats):
     if stats is None:
         return None
     considered, walked = (int(x) for x in stats.tolist())
@@ -497,11 +497,11 @@ def blend_check(payload_f32, payload_aux, tile_starts, grid: TileGrid,
     nothing waits on the card). CUDA tensors only; not counted in
     `blend.launches`."""
     _check_inputs(payload_f32, payload_aux, tile_starts, grid, hp, wp)
-    symbol, stats = _variant("vegs_blend_fwd", payload_f32, cull, counts)
+    symbol, stats = cull_variant("vegs_blend_fwd", payload_f32, cull, counts)
     stop = torch.empty((hp, wp), dtype=torch.int32, device=payload_f32.device)
     out = _launch(payload_f32, payload_aux, tile_starts, grid, hp, wp, stop,
                   symbol, stats)
-    return out, stop, _cull_counts(stats)
+    return out, stop, cull_counts(stats)
 
 
 def blend_bwd_check(payload_f32, payload_aux, tile_starts, out, dout,
@@ -510,24 +510,17 @@ def blend_bwd_check(payload_f32, payload_aux, tile_starts, out, dout,
     (dpf, dpa, counts). CUDA tensors only; not counted in
     `blend_bwd.launches`."""
     _check_bwd_inputs(payload_f32, payload_aux, tile_starts, out, dout, grid)
-    symbol, stats = _variant("vegs_blend_bwd", payload_f32, cull, counts)
+    symbol, stats = cull_variant("vegs_blend_bwd", payload_f32, cull, counts)
     dpf, dpa = _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout,
                            grid, symbol, stats)
-    return dpf, dpa, _cull_counts(stats)
+    return dpf, dpa, cull_counts(stats)
 
 
 def kernel_info(lib: str, aux_dtype: torch.dtype, pixels: int) -> dict:
     """The main path's K1 ("blend_fwd") or K2 ("blend_bwd") for tiles of
-    `pixels` pixels and this aux dtype, as the CUDA runtime reports it:
-    registers per thread, shared memory per block (bytes), resident blocks
-    per SM, local (spilled) bytes per thread. Needs a card."""
-    fn = _entry(lib, f"vegs_{lib}_info",
-                [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
-    res = (ctypes.c_int * 4)()
-    kernels.check(fn(int(aux_dtype == torch.bfloat16), pixels, res),
-                  f"vegs_{lib}_info")
-    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
-                     "local_bytes"), res))
+    `pixels` pixels and this aux dtype, as the CUDA runtime reports it
+    (`kernels.kernel_info`). Needs a card."""
+    return kernels.kernel_info(lib, int(aux_dtype == torch.bfloat16), pixels)
 
 
 class BlendFn(torch.autograd.Function):

@@ -8,13 +8,16 @@ Mixed-precision payload, as in the JAX package: an 8-column f32 table
 (pixel means, conic, opacity, depth) and a 16-column aux table (rgb, quat,
 scale) in bf16 (the default) or f32.
 
+The saturation prepass (K4, `satcull.satcount_gathered`) reads the padded
+f32 payload rows where they lie, through the sorted Gaussian index.
+
 Gradients: PyTorch autograd differentiates everything around the kernels.
 The blend's backward is kernel K2 (`blend_cuda.BlendFn`); the payload
-gather's backward (`GatherExpand`) gathers the instance cotangents into raw
-(Gaussian-grouped) order by binning's `order` map and sums them per
-Gaussian with kernel K3 (`segreduce.segment_reduce_cols`). With
-`forward_only=True` binning skips those maps and the gather is a plain
-index, as for rendering.
+gather's backward (`GatherExpand`) is kernel K3
+(`segreduce.gather_expand_bwd`), which reads the instance cotangents
+through binning's `order` map and sums them per Gaussian into row-major
+payload gradients. With `forward_only=True` binning skips those maps and
+the gather is a plain index, as for rendering.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ import torch.nn.functional as F
 
 from .. import geometry
 from . import binning, blend_ref
+from .segreduce import gather_expand_bwd
 from .projection import CameraParams, Projected, project
 
-F32_COLS = 8   # mx, my, conic_a, conic_b, conic_c, opacity, depth, (pad)
 AUX_COLS = 16  # r, g, b, qw, qx, qy, qz, sx, sy, sz, (pad x6)
 
 # sat_cull="auto" gate: the saturation prepass runs once the mean instance
@@ -99,22 +102,6 @@ def assemble_dense_payload(pf: torch.Tensor, pa: torch.Tensor) -> torch.Tensor:
         [pf[:, :6], pa_f[:, 0:3], pf[:, 6:7], pa_f[:, 3:10]], dim=1).T
 
 
-def cotangent_columns(d_pf, d_pa, order, ends):
-    """Kernel K3's inputs from the cotangents of the gathered payload (d_pf
-    [8, k_pad] f32, d_pa [16, k_pad]): the [24, kr] f32 columns in raw
-    (Gaussian-grouped) order -- column r is slot `order[r]`, zero where the
-    row is dead (order >= k_pad), the aux half upcast -- and each
-    Gaussian's segment [starts, ends) of them."""
-    k = d_pf.shape[1]
-    dead = order >= k
-    idx = torch.where(dead, torch.zeros_like(order), order).long()
-    cols = torch.cat([d_pf[:, idx], d_pa[:, idx].to(torch.float32)])
-    cols = torch.where(dead[None, :], torch.zeros((), device=cols.device),
-                       cols).contiguous()
-    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
-    return cols, starts, ends.contiguous()
-
-
 class GatherExpand(torch.autograd.Function):
     """Expand per-Gaussian payload tables to channel-major per-instance
     rows (JAX `gather_expand`, rasterize.py:137-254).
@@ -124,25 +111,22 @@ class GatherExpand(torch.autograd.Function):
     raw row -> padded slot, k_pad = dead) and `ends` ([n+1] int32: exclusive
     end of each Gaussian's rows) come from binning.
 
-    Backward: the cotangent columns in raw order (`cotangent_columns`)
-    summed per Gaussian by kernel K3; the aux gradient is cast back to the
-    aux dtype."""
+    Backward: kernel K3 (`segreduce.gather_expand_bwd`) sums each
+    Gaussian's live instance cotangents into row-major [n+1, 8] f32 and
+    [n+1, 16] aux-dtype gradients."""
 
     @staticmethod
     def forward(ctx, pay_f32, pay_aux, gidx, order, ends):
         g = gidx.long()
-        ctx.aux_dtype = pay_aux.dtype
         ctx.save_for_backward(order, ends)
         return pay_f32[g].T.contiguous(), pay_aux[g].T.contiguous()
 
     @staticmethod
     def backward(ctx, d_pf, d_pa):
-        from .segreduce import segment_reduce_cols
-
         order, ends = ctx.saved_tensors
-        out = segment_reduce_cols(*cotangent_columns(d_pf, d_pa, order, ends))
-        return (out[:F32_COLS].T, out[F32_COLS:].T.to(ctx.aux_dtype),
-                None, None, None)
+        dpf, dpa = gather_expand_bwd(d_pf.contiguous(), d_pa.contiguous(),
+                                     order, ends)
+        return dpf, dpa, None, None, None
 
 
 def _resolve_backend(config: RasterizeConfig, device: torch.device) -> str:
@@ -165,8 +149,9 @@ class Staged(NamedTuple):
     grid: binning.TileGrid
     backend: str
     rb: binning.RawBinned
-    pf_sorted: Optional[torch.Tensor]   # [8, k_cap] K4 input (sat cull on)
-    sat_counts: Optional[torch.Tensor]  # [num_tiles] K4 output
+    pay_rows: torch.Tensor              # [n+1, 8] f32 payload rows; K4
+    #                                     reads them through rb.gidx_sorted
+    sat_counts: Optional[torch.Tensor]  # [num_tiles] K4 output (sat cull on)
     binned: binning.Binned
     payload_f32: torch.Tensor           # [8, k_pad] K1 input
     payload_aux: torch.Tensor           # [16, k_pad] K1 input (bf16 or f32)
@@ -236,15 +221,17 @@ def stage(
     # Dummy zero-opacity row at index n absorbs the padding slots.
     pay_f32 = F.pad(pay_f32, (0, 0, 0, 1))
     pay_aux = F.pad(pay_aux, (0, 0, 0, 1))
-    pf_sorted = sat_counts = None
+    pay_rows = pay_f32.detach()
+    sat_counts = None
     if sat_on:
         from . import satcull
 
-        # Prepass input: the f32 payload rows in sorted order. gidx of tail
-        # slots past num_real may point anywhere in [0, n]; the kernel masks
-        # slots outside each tile's range.
-        pf_sorted = pay_f32.detach()[rb.gidx_sorted.long()].T.contiguous()
-        sat_counts = satcull.satcount(pf_sorted, rb.raw_starts, grid)
+        # K4 reads each walked slot's payload row through gidx_sorted; gidx
+        # of tail slots past num_real may point anywhere in [0, n], and the
+        # kernel masks slots outside each tile's range. (The JAX package
+        # gathers pay_f32[gidx_sorted].T first, for its TPU kernel's DMAs.)
+        sat_counts = satcull.satcount_gathered(pay_rows, rb.gidx_sorted,
+                                               rb.raw_starts, grid)
     binned = binning.bin_gaussians(
         m2d, dep, proj.radii_xy, grid, config.k_cap,
         conics=con, opacities=op,
@@ -261,7 +248,7 @@ def stage(
         payload_f32, payload_aux = GatherExpand.apply(
             pay_f32, pay_aux, binned.gidx, binned.order, ends)
     return Staged(proj=proj, grid=grid, backend=backend, rb=rb,
-                  pf_sorted=pf_sorted, sat_counts=sat_counts, binned=binned,
+                  pay_rows=pay_rows, sat_counts=sat_counts, binned=binned,
                   payload_f32=payload_f32, payload_aux=payload_aux)
 
 

@@ -10,14 +10,19 @@ tile's range with these counts before the padded relayout, so everything
 downstream runs at the compacted size. Clipped instances sit behind every
 pixel's stop, so the cull is lossless.
 
-`satcount` replaces the Pallas kernel `_satcount_kernel`
-(vegs_tpu/ops/satcull.py:65, launched by `satcount`:171). On a CUDA tensor
-it launches the hand-written kernel in `csrc/satcount.cu` (one block per
-tile, one thread per pixel, 256-slot windows staged in shared memory,
-block-wide exit once every pixel crossed; bound by its per-pixel scalar
-math -- see the source note there). On a CPU tensor it runs `satcount_ref`,
-the plain version. `satcount_np` is a numpy copy of the JAX package's loop
-oracle.
+`satcount` (the JAX package's layout: channel-major rows in sorted order)
+and `satcount_gathered` (the main path: the padded [n+1, 8] payload rows
+read through the sorted Gaussian index, where they lie) replace the Pallas
+kernel `_satcount_kernel` (vegs_tpu/ops/satcull.py:65, launched by
+`satcount`:171). On CUDA tensors both launch the hand-written kernel in
+`csrc/satcount.cu` (one block per tile, one thread per pixel, 256-slot
+windows double-buffered in shared memory with cp.async, K1's per-warp
+footprint cull, block-wide exit once every pixel crossed; bound by its
+per-pixel scalar math -- see the source note there), each with its own
+launch count. On CPU tensors they run `satcount_ref` and
+`satcount_gathered_ref`, the plain versions. `satcount_check` launches
+the main path's kernel with the cull compiled in or out, for chip_smoke.py
+only. `satcount_np` is a numpy copy of the JAX package's loop oracle.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from .. import kernels
 from .binning import PAD_ALIGN, TileGrid
+from .blend_cuda import cull_counts, cull_variant
 from .blend_ref import ALPHA_CLAMP, ALPHA_MIN, T_EPS, splat_alpha
 
 NEG_CAP = -80.0
@@ -161,17 +167,19 @@ def satcount_np(pf_cm, raw_starts, grid: TileGrid) -> np.ndarray:
     return counts
 
 
-def satcount(pf_cm: torch.Tensor, raw_starts: torch.Tensor,
-             grid: TileGrid) -> torch.Tensor:
-    """Per-tile kept counts for a (tile, depth)-sorted raw stream.
 
-    pf_cm: [8, k] channel-major f32, rows 0..5 = (mx, my, conic a, b, c,
-    opacity) in SORTED order (rows 6..7 ignored); raw_starts [T+1] int32.
-    Returns [T] int32. CUDA tensors launch K4; CPU tensors run
-    `satcount_ref`."""
-    if pf_cm.dtype != torch.float32 or pf_cm.ndim != 2 or pf_cm.shape[0] < 6:
-        raise ValueError("pf_cm must be [8, k] float32")
-    if pf_cm.shape[1] % PAD_ALIGN != 0:
+
+def satcount_gathered_ref(pay_f32: torch.Tensor, gidx_sorted: torch.Tensor,
+                          raw_starts: torch.Tensor, grid: TileGrid,
+                          pairs: dict | None = None) -> torch.Tensor:
+    """Plain version of the main path's K4 entry: `satcount_ref` on the
+    channel-major rows pay_f32[gidx_sorted].T."""
+    return satcount_ref(pay_f32[gidx_sorted.long()].T, raw_starts, grid,
+                        pairs)
+
+
+def _check_grid(raw_starts: torch.Tensor, grid: TileGrid, k: int):
+    if k % PAD_ALIGN != 0:
         raise ValueError("k must be a multiple of PAD_ALIGN")
     if raw_starts.dtype != torch.int32 or raw_starts.shape[0] != grid.num_tiles + 1:
         raise ValueError("raw_starts must be [num_tiles + 1] int32")
@@ -179,30 +187,132 @@ def satcount(pf_cm: torch.Tensor, raw_starts: torch.Tensor,
     if grid.ntx % 8 != 0:
         raise ValueError(f"ntx={grid.ntx} must be a multiple of 8 "
                          "(TileGrid.for_image rounds it up)")
+
+
+def _check_launch(grid: TileGrid, *ts):
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    if grid.tile_h * grid.tile_w > 1024 or (grid.tile_h * grid.tile_w) % 32:
+        raise ValueError("tile_h * tile_w must be a multiple of 32, <= 1024")
+
+
+_ROW_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_CM_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _run(symbol: str, argtypes, lead: tuple, raw_starts, grid: TileGrid,
+         stats=None) -> torch.Tensor:
+    """Launch `symbol` with its leading arguments `lead`, then the grid, the
+    output and `stats` (or null) on the current stream."""
+    fn = getattr(kernels.load("satcount"), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    dev = raw_starts.device
+    out = torch.empty((grid.num_tiles,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*lead, raw_starts.data_ptr(), grid.ntx, grid.nty,
+                 grid.tile_h, grid.tile_w, out.data_ptr(),
+                 stats.data_ptr() if stats is not None else None, stream)
+    kernels.check(err, symbol)
+    return out
+
+
+def satcount(pf_cm: torch.Tensor, raw_starts: torch.Tensor,
+             grid: TileGrid) -> torch.Tensor:
+    """Per-tile kept counts for a (tile, depth)-sorted raw stream, in the
+    JAX package's layout (the main path reads the rows where they lie:
+    `satcount_gathered`).
+
+    pf_cm: [8, k] channel-major f32, rows 0..5 = (mx, my, conic a, b, c,
+    opacity) in SORTED order (rows 6..7 ignored); raw_starts [T+1] int32.
+    Returns [T] int32. CUDA tensors launch K4 (`vegs_satcount_cm`); CPU
+    tensors run `satcount_ref`."""
+    if pf_cm.dtype != torch.float32 or pf_cm.ndim != 2 or pf_cm.shape[0] < 6:
+        raise ValueError("pf_cm must be [8, k] float32")
+    _check_grid(raw_starts, grid, pf_cm.shape[1])
     if pf_cm.device != raw_starts.device:
         raise ValueError("pf_cm and raw_starts on different devices")
     if pf_cm.device.type == "cpu":
         return satcount_ref(pf_cm, raw_starts, grid)
     if pf_cm.device.type != "cuda":
         raise ValueError(f"no satcount kernel for device {pf_cm.device}")
-    if not (pf_cm.is_contiguous() and raw_starts.is_contiguous()):
-        raise ValueError("kernel inputs must be contiguous")
-    if grid.tile_h * grid.tile_w > 1024 or (grid.tile_h * grid.tile_w) % 32:
-        raise ValueError("tile_h * tile_w must be a multiple of 32, <= 1024")
-    fn = kernels.load("satcount").vegs_satcount
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    out = torch.empty((grid.num_tiles,), dtype=torch.int32, device=pf_cm.device)
-    with torch.cuda.device(pf_cm.device):
-        stream = torch.cuda.current_stream(pf_cm.device).cuda_stream
-        err = fn(pf_cm.data_ptr(), raw_starts.data_ptr(), pf_cm.shape[1],
-                 grid.ntx, grid.nty, grid.tile_h, grid.tile_w,
-                 out.data_ptr(), stream)
-    kernels.check(err, "satcount")
+    _check_launch(grid, pf_cm, raw_starts)
+    out = _run("vegs_satcount_cm", _CM_ARGS,
+               (pf_cm.data_ptr(), pf_cm.shape[1]), raw_starts, grid)
     satcount.launches += 1
     return out
 
 
-satcount.launches = 0  # K4 launches: incremented where the kernel is launched
+satcount.launches = 0  # K4 launches in the JAX layout
+
+
+def _check_gathered(pay_f32, gidx_sorted, raw_starts, grid):
+    if pay_f32.dtype != torch.float32 or pay_f32.ndim != 2 or pay_f32.shape[1] != 8:
+        raise ValueError("pay_f32 must be [n + 1, 8] float32")
+    if gidx_sorted.dtype != torch.int32 or gidx_sorted.ndim != 1:
+        raise ValueError("gidx_sorted must be [k] int32")
+    _check_grid(raw_starts, grid, gidx_sorted.shape[0])
+    devs = {pay_f32.device, gidx_sorted.device, raw_starts.device}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+
+
+def _launch_gathered(pay_f32, gidx_sorted, raw_starts, grid,
+                     symbol="vegs_satcount", stats=None):
+    _check_launch(grid, pay_f32, gidx_sorted, raw_starts)
+    if pay_f32.data_ptr() % 16:
+        raise ValueError("pay_f32 must be 16-byte aligned (K4 copies its "
+                         "rows with 16-byte cp.async)")
+    return _run(symbol, _ROW_ARGS,
+                (pay_f32.data_ptr(), pay_f32.shape[0], gidx_sorted.data_ptr()),
+                raw_starts, grid, stats)
+
+
+def satcount_gathered(pay_f32: torch.Tensor, gidx_sorted: torch.Tensor,
+                      raw_starts: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """The main path's K4: the counts of `satcount` on
+    pay_f32[gidx_sorted].T, reading each walked slot's payload row where it
+    lies.
+
+    pay_f32 [n + 1, 8] f32 row-major (the padded payload: row n is the
+    zero-opacity dummy), gidx_sorted [k] int32 (each sorted slot's
+    Gaussian, any value in [0, n] outside the tiles' ranges), raw_starts
+    [T+1] int32. CUDA tensors launch K4 (`vegs_satcount`, with its per-warp
+    cull); CPU tensors run `satcount_gathered_ref`."""
+    _check_gathered(pay_f32, gidx_sorted, raw_starts, grid)
+    if pay_f32.device.type == "cpu":
+        return satcount_gathered_ref(pay_f32, gidx_sorted, raw_starts, grid)
+    if pay_f32.device.type != "cuda":
+        raise ValueError(f"no satcount kernel for device {pay_f32.device}")
+    out = _launch_gathered(pay_f32, gidx_sorted, raw_starts, grid)
+    satcount_gathered.launches += 1
+    return out
+
+
+satcount_gathered.launches = 0  # K4 launches on the main path
+
+
+def satcount_check(pay_f32, gidx_sorted, raw_starts, grid: TileGrid,
+                   cull: bool, counts: bool = True):
+    """The main path's K4 with its per-warp cull compiled in (`cull`) or
+    out (`vegs_satcount_nocull`), for chip_smoke.py's bit-identity check and
+    timing only: (kept counts, cull counts as `blend_cuda.blend_check`
+    gives them, or None without `counts`). CUDA tensors only; not counted
+    in `satcount_gathered.launches`."""
+    _check_gathered(pay_f32, gidx_sorted, raw_starts, grid)
+    symbol, stats = cull_variant("vegs_satcount", pay_f32, cull, counts)
+    out = _launch_gathered(pay_f32, gidx_sorted, raw_starts, grid, symbol,
+                           stats)
+    return out, cull_counts(stats)
+
+
+def kernel_info(pixels: int) -> dict:
+    """The main path's K4 for tiles of `pixels` pixels, as the CUDA runtime
+    reports it (`kernels.kernel_info`). Needs a card."""
+    return kernels.kernel_info("satcount", pixels)

@@ -7,9 +7,12 @@ by a probe (+5%, rounded to 512) with no instance dropped. Each stage runs
 through the port's own functions: the full forward and backward (with
 Mpix/s) and the full forward, per tile shape; then, at 16x16 tiles, the
 projection's forward and backward, `bin_gaussians` with the backward's
-maps, `bin_raw`, the sort at k_cap, the sat-cull prepass gather, K4, the
-payload gather (`GatherExpand`) forward and forward+backward (K3), and the
-blend forward (K1) and forward+backward (K1+K2). On the card each stage
+maps, `bin_raw`, the sort at k_cap, K4 as the main path runs it (reading
+the payload rows through the sorted Gaussian index), the sat-cull prepass
+gather and K4 on its channel-major output (the JAX package's layout, which
+r09 times and the main path no longer pays), the payload gather
+(`GatherExpand`) forward and forward+backward (K3), and the blend forward
+(K1) and forward+backward (K1+K2). On the card each stage
 has its stream time ("ms", CUDA events), the card's own time ("device_ms",
 torch.profiler), the device operations it launches per call and the three
 that take the most device time (`timing.measure`). Two lines of instance
@@ -106,8 +109,9 @@ def _payload(proj, quats, scales):
 
 
 def _prepass(pf_pad, rb):
-    """K4's input: the f32 payload rows in sorted order, channel-major (as
-    `rasterize.stage` gathers it)."""
+    """The JAX package's K4 input: the f32 payload rows in sorted order,
+    channel-major (vegs_tpu/ops/rasterize.py:363-365). The port's main path
+    does not build it."""
     return pf_pad[rb.gidx_sorted.long()].T.contiguous()
 
 
@@ -137,8 +141,9 @@ def size_caps(cam, arrays, tile_h: int = 16, tile_w: int = 16,
             rb = binning.bin_raw(proj.means2d, proj.depths, proj.radii_xy,
                                  grid, k_cap, conics=proj.conics,
                                  opacities=proj.opacities)
-            counts = (satcull.satcount(_prepass(pf_pad, rb), rb.raw_starts,
-                                       grid) if sat else None)
+            counts = (satcull.satcount_gathered(pf_pad, rb.gidx_sorted,
+                                                rb.raw_starts, grid)
+                      if sat else None)
             return rb, binning.bin_gaussians(
                 proj.means2d, proj.depths, proj.radii_xy, grid, k_cap,
                 conics=proj.conics, opacities=proj.opacities,
@@ -180,10 +185,10 @@ def run(device=None, n: int = N_REF, h: int = H, w: int = W,
     leaves = [x.clone().requires_grad_(True) for x in arrays]
     stages = {}
 
-    def timed(name, fn):
+    def timed(name, fn, **note):
         t = measure(fn, dev, iters, warmup)
         stages[name] = t
-        emit(stage=name, **t, card=card)
+        emit(stage=name, **t, **note, card=card)
         return t
 
     caps = {}
@@ -252,11 +257,18 @@ def run(device=None, n: int = N_REF, h: int = H, w: int = W,
 
         rb = binning.bin_raw(*geo, k_cap, **cull)
         pf_pad, pa_pad = _payload(p, quats, scales)
-        timed("satcull prepass gather", lambda: _prepass(pf_pad, rb))
+        k4_args = (pf_pad, rb.gidx_sorted, rb.raw_starts, grid)
+        timed("K4 satcount", lambda: satcull.satcount_gathered(*k4_args))
+        sat_counts = satcull.satcount_gathered(*k4_args)
+        jax_layout = {"note": "the JAX package's layout; the main path no "
+                              "longer runs it"}
+        timed("satcull prepass gather", lambda: _prepass(pf_pad, rb),
+              **jax_layout)
         pf_sorted = _prepass(pf_pad, rb)
-        timed("K4 satcount",
-              lambda: satcull.satcount(pf_sorted, rb.raw_starts, grid))
-        sat_counts = satcull.satcount(pf_sorted, rb.raw_starts, grid)
+        timed("K4 satcount, channel-major",
+              lambda: satcull.satcount(pf_sorted, rb.raw_starts, grid),
+              **jax_layout)
+        del pf_sorted
         raw_counts = rb.raw_starts[1:] - rb.raw_starts[:-1]
         emit(stat="satcull keeps",
              kept=int(torch.minimum(sat_counts, raw_counts).sum()),
@@ -310,8 +322,7 @@ def run(device=None, n: int = N_REF, h: int = H, w: int = W,
             counts["pairs_k1"], counts["pairs_k4"] = {}, {}
             blend_cuda.blend_ref_tiles(pf_e, pa_e, *blend_args,
                                        pairs=counts["pairs_k1"])
-            satcull.satcount_ref(pf_sorted, rb.raw_starts, grid,
-                                 pairs=counts["pairs_k4"])
+            satcull.satcount_gathered_ref(*k4_args, pairs=counts["pairs_k4"])
     return {"stages": stages, "counts": counts, "card": card}
 
 

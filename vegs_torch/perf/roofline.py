@@ -8,7 +8,7 @@ in the same run (the stream's, and the card's own), and the share bound /
 time of each. The counts are the port's work at
 this run's sizes: the blend kernels charge operations per walked, tested
 and included (pixel, instance) pair from the plain versions' `pairs`
-record, the segment reduce one add per column element; the sort has no
+record, the segment reduce one add per summed value; the sort has no
 bound and is reported against its time, as r10 does. A share above 100%
 means a count is wrong, and the run fails. No time taken on a TPU enters:
 r10's `MEASURED_2M` is not carried over.
@@ -93,16 +93,27 @@ def k2_work(pairs, aux_bytes, k, num_tiles, hp, wp) -> Work:
 
 
 def k3_work(rows, columns, segments) -> Work:
-    """K3: the summed f32 columns, the segment bounds, the sums; one add
-    per column element."""
+    """K3 in the JAX contract: the summed f32 columns, the segment bounds,
+    the sums; one add per column element."""
     return Work(4 * (rows * (columns + segments) + 2 * segments),
                 rows * columns)
 
 
-def k4_work(pairs, num_tiles) -> Work:
-    """K4: the 6 f32 rows it reads of the in-range instances up to each
-    tile's farthest crossing, the ranges, the counts."""
-    return Work(pairs["slots"] * 6 * 4 + 4 * (2 * num_tiles + 1),
+def k3_fused_work(rows, segments, aux_bytes) -> Work:
+    """K3 as the main path runs it (the gather's whole backward): the 8 f32
+    and 16 aux cotangents and the `order` entry of each of the `rows` raw
+    rows the segments hold (all live under the sat cull), the segment ends,
+    each Gaussian's two output rows; one add per summed value."""
+    row = 8 * 4 + 16 * aux_bytes
+    return Work(rows * (row + 4) + segments * (4 + row), 24 * rows)
+
+
+def k4_work(pairs, num_tiles, gathered=True) -> Work:
+    """K4: rows 0-5 (f32) of the in-range instances up to each tile's
+    farthest crossing -- and, as the main path reads them, each one's
+    4-byte Gaussian index -- the ranges, the counts."""
+    per_slot = 6 * 4 + (4 if gathered else 0)
+    return Work(pairs["slots"] * per_slot + 4 * (2 * num_tiles + 1),
                 pair_ops(pairs, "K4"))
 
 
@@ -121,10 +132,10 @@ def stage_work(c: dict) -> dict:
     k4 = k4_work(c["pairs_k4"], t)
     row = 32 + 16 * es  # one Gaussian's f32 and aux payload rows
     ge_fwd = Work((n + 1) * row + 4 * kp + kp * row, 0)
-    k3 = k3_work(24, c["columns"], n + 1)
+    k3 = k3_fused_work(c["columns"], n + 1, es)
     k1 = k1_work(c["pairs_k1"], es, t, c["hp"], c["wp"])
     k2 = k2_work(c["pairs_k1"], es, kp, t, c["hp"], c["wp"])
-    sat = (prepass + k4) if c["sat"] else Work(0, 0)
+    sat = k4 if c["sat"] else Work(0, 0)
     return {
         "[16x16] full fwd+bwd": proj_fb + bin_raw + sat + ge_fwd + k3 + k1 + k2,
         "[16x16] full forward": proj_fwd + bin_raw + sat + ge_fwd + k1,
@@ -132,8 +143,9 @@ def stage_work(c: dict) -> dict:
         "bin_gaussians (grad maps, no keys)": bin_g,
         "bin_raw (expand+cull+sort)": bin_raw,
         "sort at k_cap (stable, 2 gathers)": None,
-        "satcull prepass gather": prepass,
         "K4 satcount": k4,
+        "satcull prepass gather": prepass,
+        "K4 satcount, channel-major": k4_work(c["pairs_k4"], t, gathered=False),
         "GatherExpand fwd": ge_fwd,
         "GatherExpand fwd+bwd (K3)": ge_fwd + k3,
         "K1 blend fwd": k1,
