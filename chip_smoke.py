@@ -56,17 +56,43 @@ Phases, one JSON line each; any failure exits non-zero:
                  against a float64 walk of those tiles (k2_f64); K3 as the
                  main path runs it, the gather's whole backward, against
                  its plain version (k3_fused: card, plain and bound times,
-                 the segments' span distribution, the kernel's time by
-                 long-segment threshold, the gather's backward's device
-                 time fused and by the columns path); and K3 in the JAX
+                 the library time -- autograd's own backward of the
+                 gather, `k3_library`, held at K3's limit -- and the
+                 earlier `index_add_` yardstick's (index_add_ms), the
+                 segments' span distribution, the gather's backward's
+                 device time fused and by the columns path); and K3 in the JAX
                  contract on those columns (k3_check, with the library
                  time);
-  9. grad     -- one step's gradients (every field leaf and the means2d
-                 tap) through the kernels on the card against the plain
-                 versions on the CPU, on a reduced scene (128x512, 50k
-                 Gaussians, bf16 aux);
- 10. perf     -- the measurement path (`vegs_torch.perf`), after the train
-                 phase's tensors are freed: M1 (block sum) and M2
+  9. grad     -- one step's gradients (every field leaf, the means2d tap,
+                 and every leaf of two box fields of different capacities
+                 and of their residuals) through the kernels on the card
+                 against the plain versions on the CPU, on a reduced scene
+                 (128x512, 50k Gaussians and 2 boxes, bf16 aux);
+ 10. boxes    -- the dynamic-scene training path at full width, after the
+                 earlier phases' tensors are freed: the same seeded
+                 2,233,571-Gaussian static field (a PLY) and 3 street
+                 cameras, with 8 vehicle instances in every frame (car
+                 boxes 4.2 x 1.6 x 1.8 at depths 8-36, yaws 0.3-1.2 rad,
+                 each box's field built by `initialize_box_field` from
+                 8,202 seeded mover points mapped to the world, written
+                 as per-instance PLYs and loaded by `Scene`); each box's
+                 share of each frame (>= 0.5%); the normal-prior init
+                 (`Trainer.init_from_normals`, ms and count) on the
+                 cameras' synthetic normal maps; capacities re-probed
+                 with the boxes; ground truth by `render_all` at the
+                 annotated poses, then sh_dc + 0.35 on every field and
+                 each (frame, instance) residual's delta_t a seeded 0.05
+                 off; 8 steps (iterations 3001-3008, one densify at 3008
+                 over the field and every box) with the launch counters
+                 reset just before -- loss, ms per step, the densify
+                 step's ms, peak memory, K1-K4 launches (8 each), the mean
+                 |delta_t| before and after, box rows and capacities
+                 before and after; a profile of 2 more steps
+                 (boxes_profile); then `render_all` ms per frame on the
+                 3 frames, and K1 and K4 against their plain versions on
+                 the first frame's inputs (limits of phases 3-5);
+ 11. perf     -- the measurement path (`vegs_torch.perf`), after the
+                 boxes phase's tensors are freed: M1 (block sum) and M2
                  (transpose) against their plain versions at the probes'
                  full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
                  both layouts), with card, plain, library times and
@@ -76,7 +102,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
- 11. the kernels summary line, then the card line, then the last line
+ 12. the kernels summary line (launches: the train phase's; launches_boxes:
+     the boxes phase's), then the card line, then the last line
      {"ok": true, "device": {...}}.
 
 Tolerances: K4 counts must agree (a tile may differ only by exactly one
@@ -100,9 +127,13 @@ plus one bf16 ulp (2^-7 |ref|) on bf16 rows; control: the kernel's output
 of |x| over the segment) -- the plain version adds with atomics in any
 order on the card; on the fused entry's aux rows, plus one bf16 ulp of
 |ref| (both round their float32 sums once); control: each segment's last
-column left out. Step gradients: relative L2 error <= 1e-4 per leaf;
-control: K2's f32 rows rounded to bf16. K1 and K2 with the cull against the
-same kernels without it: equal to the bit. K2's f32 rows on the deep
+column left out. Step gradients: relative L2 error <= 1e-4 per leaf; a
+box's colour leaves are one bf16 K3 aux row a Gaussian times SH constants,
+so the plain run takes the card's row value where the two are exactly one
+bf16 step apart, and at most 1% of those values may be; control: K2's f32
+rows rounded to bf16, and K3's box colour rows one bf16 step toward
+zero. K1 and K2 with the cull against the same kernels without it: equal
+to the bit. K2's f32 rows on the deep
 instances of the 32 deepest tiles against a float64 walk of those tiles
 (the float64 forward seeding it): |d| <= 1e-2 of the largest |float64| of
 the instance's 256-instance group -- the float32 cancellation of dL = tail
@@ -145,10 +176,26 @@ K2_SCALE = {"f32_rows": "row", "aux_rows": "group"}
 BF16_ULP, K2_MAX_FLIP_TILES = 2.0 ** -7, 0.01
 K3_RTOL = 1e-5
 GRAD_RTOL = 1e-4
+# the share of the grad phase's box colour values that K3 rounds to the
+# neighbouring bf16 value of the plain version's (see `k3_colour_rows`)
+COLOUR_MAX_FLIP_SHARE = 0.01
 CONTROL_ERR = 0.01  # the K2 control's error on the deep instances
 M1_RTOL = 1e-8
 K2_F64_TILES = 32   # the deepest tiles of the first step, walked in float64
 K2_F64_RTOL = 0.01  # K2's deep f32 rows against float64, of the group max
+# the grad phase's boxes: (Gaussians, capacity) each
+GRAD_BOX_CAPS = ((3000, 4096), (5000, 8192))
+CAR_SIZE = (4.2, 1.6, 1.8)  # a car's length, height (y is down), width, m
+# the boxes phase: 8 vehicles (the default max_box_slots) of BOX_POINTS
+# canonical points each, at these world depths, yaws and lateral places
+# (a share of the half-width at their depth), in every one of the frames
+BOX_INST0, BOX_POINTS = 26001, 8196
+BOX_DEPTHS = (8.0, 12.0, 16.0, 20.0, 24.0, 28.0, 32.0, 36.0)
+BOX_YAWS = (0.3, 1.1, 0.5, 0.9, 0.35, 1.2, 0.7, 0.45)
+BOX_LATERAL = (-0.55, 0.45, -0.2, 0.25, -0.45, 0.55, 0.05, -0.6)
+# the normal prior flattens the field into 0.1-unit discs, which need ~4-6x
+# the raw instances of the trained field (the boxes line's `need_raw`)
+BOX_PROBE_CAP = (1 << 25) - 512
 
 # Iterations 3001-3008 (SH degree 3 active); the one densify-and-prune
 # event falls at 3008, after that step's loss, so the losses compare the
@@ -165,11 +212,14 @@ def r512(v: float) -> int:
     return (int(v) + 511) // 512 * 512
 
 
-def field_stage(field, cam, cfg):
-    from vegs_torch.render import field_arrays
+def field_stage(field, cam, cfg, boxes=()):
+    """`rasterize`'s stages before the blend of the field, and of the
+    `boxes` (`BoxInstance`s) with it as `render_all` concatenates them."""
     from vegs_torch.ops.rasterize import stage
+    from vegs_torch.render import _box_arrays, _concat_arrays, field_arrays
 
-    a = field_arrays(field)
+    a = _concat_arrays([field_arrays(field)]
+                       + [_box_arrays(b, 3) for b in boxes])
     return stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
                  valid=a.valid, config=cfg)
 
@@ -358,18 +408,21 @@ def deep_control(tile_starts, k, grid):
 
 
 def staged_loss(field, tap, cam, gt, normal, sh_degree, bg, opt_cfg,
-                raster_cfg):
-    """The training step's loss (`train.loss_fn`) from the stages that
-    `rasterize` runs on the kernel path, called one by one -- `stage`, the
-    blend (`BlendFn`: K1, and K2 in the backward), `raster_out`,
-    `image_loss` -- so that the blend's payload and padded output are at
-    hand. Returns (loss, Staged, padded output)."""
+                raster_cfg, boxes=(), lambda_reg=0.0):
+    """The training step's loss (`train.loss_fn`, with the `boxes`' parts
+    and pull when there are any) from the stages that `rasterize` runs on
+    the kernel path, called one by one -- `stage`, the blend (`BlendFn`:
+    K1, and K2 in the backward), `raster_out`, `image_loss` -- so that the
+    blend's payload and padded output are at hand. Returns (loss, Staged,
+    padded output)."""
+    from vegs_torch import boxmodel
     from vegs_torch.ops.blend_cuda import BlendFn
     from vegs_torch.ops.rasterize import raster_out, stage
-    from vegs_torch.render import field_arrays
+    from vegs_torch.render import _box_arrays, _concat_arrays, field_arrays
     from vegs_torch.train import image_loss
 
-    a = field_arrays(field, sh_degree)
+    a = _concat_arrays([field_arrays(field, sh_degree)]
+                       + [_box_arrays(b, sh_degree) for b in boxes])
     st = stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
                sh_degree=3, valid=a.valid, means2d_offset=tap,
                config=raster_cfg)
@@ -378,7 +431,11 @@ def staged_loss(field, tap, cam, gt, normal, sh_degree, bg, opt_cfg,
                           st.binned.tile_starts, g, g.padded_height,
                           g.padded_width)
     ro = raster_out(st, out_p[:, :cam.height, :cam.width], bg)
-    return image_loss(ro, gt, normal, 1.0, opt_cfg)[0], st, out_p
+    loss = image_loss(ro, gt, normal, 1.0, opt_cfg)[0]
+    if boxes:
+        loss = loss + lambda_reg * torch.stack(
+            [boxmodel.regularize_loss(b.deltas) for b in boxes]).sum()
+    return loss, st, out_p
 
 
 def step_kernel_inputs(trainer, cam, it, dev):
@@ -628,26 +685,47 @@ def compare_k3(cols, starts, ends):
             "control_reading": reading(short), "plain_ms": plain_s * 1e3}
 
 
-def k3_library(d_pf, d_pa, gidx, rows):
-    """The payload gather's backward as autograd's own backward of
-    `pay[gidx]` computes it: one `index_add_` of the channel-major
-    cotangents by `gidx` per table ([8 | 16, rows] f32, channel-major; the
-    aux half added in float32)."""
+def k3_library(pay_f32, aux_dtype, gidx):
+    """K3's library yardstick: autograd's own backward of the payload
+    gather, as `GatherExpand` would run without K3 -- `pay_f32[gidx].T
+    .contiguous()` and its aux half, built once from leaf tables that
+    require grad (the backward reads none of their values: the aux table is
+    zeros of the step's aux dtype). Returns backward(d_pf, d_pa) ->
+    (d_pay_f32 [n+1, 8], d_pay_aux [n+1, 16]): `torch.autograd.grad` of the
+    two gathers with K2's cotangents (an accumulating `index_put_` on each
+    row-major table)."""
+    pf = pay_f32.detach().clone().requires_grad_(True)
+    pa = torch.zeros((pf.shape[0], 16), dtype=aux_dtype, device=pf.device,
+                     requires_grad=True)
+    g = gidx.long()
+    outs = (pf[g].T.contiguous(), pa[g].T.contiguous())
+
+    def backward(d_pf, d_pa):
+        return torch.autograd.grad(outs, (pf, pa), (d_pf, d_pa),
+                                   retain_graph=True)
+
+    return backward
+
+
+def k3_index_add(d_pf, d_pa, gidx, rows):
+    """The gather's backward as one `index_add_` of the channel-major
+    cotangents by `gidx` per table ([8 | 16, rows] f32; the aux half added
+    in float32): an earlier yardstick, read under its own name."""
     f = torch.zeros((8, rows), device=d_pf.device).index_add_(1, gidx, d_pf)
     a = torch.zeros((16, rows), device=d_pf.device).index_add_(
         1, gidx, d_pa.float())
     return f, a
 
 
-def compare_k3_fused(k3_args, gidx):
+def compare_k3_fused(k3_args, st):
     """K3 as the main path runs it (`gather_expand_bwd`) vs its plain
     version on the same CUDA inputs. Readings per row set, of each
     segment's |x| sum: the f32 rows |d|, the aux rows |d| less one bf16 ulp
     of |ref| (the two sums round to bf16 apart); the control is the plain
     sum with each segment's last row left out. The library yardstick
-    (`k3_library` by the gather's `gidx`) is held the same way against
-    the kernel on rows 0..n-1 (the dummy row n gathers the tail slots,
-    and K3 gives it an empty segment)."""
+    (`k3_library` on the `Staged` `st`'s payload rows and gather index) is
+    held the same way against the kernel on rows 0..n-1 (the dummy row n
+    gathers the tail slots, and K3 gives it an empty segment)."""
     from vegs_torch.ops import segreduce
 
     d_pf, d_pa, order, ends = k3_args
@@ -668,7 +746,7 @@ def compare_k3_fused(k3_args, gidx):
         return float((d / mag[:x.shape[0], sl].clamp(min=1e-30)).max())
 
     n = ends.shape[0] - 1
-    lib = k3_library(d_pf, d_pa, gidx, n + 1)
+    lib = k3_library(st.pay_rows, d_pa.dtype, st.binned.gidx)(d_pf, d_pa)
 
     res = {"segments": int(ends.shape[0]), "rows": int(ends[-1]),
            "live_rows": int((order[:int(ends[-1])] < d_pf.shape[1]).sum()),
@@ -682,8 +760,8 @@ def compare_k3_fused(k3_args, gidx):
         ctl = short[:, sl].to(got[i].dtype)
         res[name] = {"reading": reading(got[i], ref[i], sl, u),
                      "control_reading": reading(ctl, ref[i], sl, u),
-                     "library_reading": reading(
-                         lib[i][:, :n].T.to(got[i].dtype), got[i][:n], sl, u),
+                     "library_reading": reading(lib[i][:n], got[i][:n], sl,
+                                                u),
                      "max_abs_err": float((got[i].float()
                                            - ref[i].float()).abs().max())}
     res["max_abs_err"] = max(res[n]["max_abs_err"] for n in halves)
@@ -719,16 +797,122 @@ def gather_bwd_times(k3_args) -> dict:
             for name, rs in runs.items()}
 
 
+def grad_boxes(rng, caps=GRAD_BOX_CAPS):
+    """The grad phase's two box instances (numpy): canonical fields of
+    3,000 and 5,000 Gaussians on the box's faces, at opacities near a box
+    field's seed (~0.18), at capacities 4096 and 8192 (different, so the
+    concatenated rows of the parts differ from a pooled layout), small
+    boxes at depths 1.1 and 1.35, in front of the static field (from depth
+    1.5; an occluded Gaussian gets no gradient at all past the sat cull),
+    yaw 0.3 and 1.1 rad (away from the ties of `rotmat_to_quat`),
+    residuals a little off identity."""
+    boxes = []
+    for (n, cap), yaw, t in zip(caps, (0.3, 1.1),
+                                ((-0.3, 0.03, 1.1), (0.35, -0.03, 1.35))):
+        f = {"means": np.zeros((cap, 3)), "quats": np.zeros((cap, 4)),
+             "log_scales": np.full((cap, 3), np.log(1e-7)),
+             "sh_dc": np.zeros((cap, 1, 3)), "sh_rest": np.zeros((cap, 15, 3)),
+             "opacity_logit": np.zeros((cap, 1)), "valid": np.zeros(cap, bool)}
+        f["means"][:n] = surface_points(rng, n)
+        f["quats"][:n] = rng.normal(size=(n, 4))
+        f["log_scales"][:n] = np.log(rng.uniform(0.01, 0.03, (n, 3)))
+        f["sh_dc"][:n] = rng.normal(0, 0.5, (n, 1, 3))
+        f["sh_rest"][:n] = rng.normal(0, 0.1, (n, 15, 3))
+        f["opacity_logit"][:n] = rng.normal(-1.5, 0.5, (n, 1))
+        f["valid"][:n] = True
+        deltas = {"delta_r": np.r_[1.0, 0, 0, 0] + rng.normal(0, 0.02, 4),
+                  "delta_s": 1.0 + rng.normal(0, 0.02, 3),
+                  "delta_t": rng.normal(0, 0.05, 3)}
+        boxes.append((f, car_box2world(yaw, t, size=(0.3, 0.2, 0.25)), deltas))
+    return boxes
+
+
+def surface_points(rng, n) -> np.ndarray:
+    """n points uniform on the canonical unit box's six faces."""
+    p = rng.uniform(-0.5, 0.5, (n, 3))
+    face = rng.integers(0, 6, n)
+    p[np.arange(n), face // 2] = np.where(face % 2, 0.5, -0.5)
+    return p
+
+
+def car_box2world(yaw, center, size=CAR_SIZE) -> np.ndarray:
+    """The canonical unit box -> world: a yaw about the (down-pointing) y
+    axis, per-axis size (length, height, width), the center."""
+    c, s_ = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4)
+    m[:3, :3] = np.array([[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]]
+                         ) @ np.diag(size)
+    m[:3, 3] = center
+    return m.astype(np.float32)
+
+
+def bf16_steps(a, b):
+    """|a - b| in bf16 rounding steps, per value (a, b bfloat16; +0 = -0)."""
+    def key(x):
+        v = bits(x).to(torch.int32)
+        return torch.where(v >= 0, v, -(v & 0x7FFF))
+    return (key(a) - key(b)).abs()
+
+
+class k3_colour_rows:
+    """For one run, wraps the gather's backward (K3 on the card, its plain
+    version on the CPU) and records its bf16 gradient of the `rows`' colour
+    columns (the aux table's rgb, 0:3) as `.got`. With `adopt` (another
+    run's record) the run takes that record's value where the two are
+    exactly one bf16 step apart, so that one rounding of the same float32
+    sum to either neighbour is all that is let through; with `shift` every
+    nonzero value moves one step toward zero first (a fault for the
+    control: what the check must not let through on every value)."""
+
+    def __init__(self, rows, adopt=None, shift=False):
+        self.rows, self.adopt, self.shift, self.got = rows, adopt, shift, None
+
+    def __enter__(self):
+        from vegs_torch.ops import rasterize
+
+        self.mod, self.orig = rasterize, rasterize.gather_expand_bwd
+
+        def wrapped(*args):
+            dpf, dpa = self.orig(*args)
+            col = dpa[self.rows, :3]
+            if self.shift:
+                col = torch.where(col != 0, (bits(col) - 1).view(col.dtype),
+                                  col)
+            self.got = col.cpu()
+            if self.adopt is not None:
+                other = self.adopt.to(col.device)
+                col = torch.where(bf16_steps(col, other) == 1, other, col)
+            dpa = dpa.clone()
+            dpa[self.rows, :3] = col
+            return dpf, dpa
+
+        rasterize.gather_expand_bwd = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gather_expand_bwd = self.orig
+
+
 def grad_check(dev, n=50_000, seed=SEED):
     """One step's gradients through the kernels (card) and the plain
-    versions (CPU tensors) on a reduced scene: relative L2 error per leaf,
-    and the same for the control -- the kernel path with K2's f32 gradient
-    rows rounded to bf16 (as a kernel that wrote them in the aux dtype
-    would), through a tensor hook on the blend's payload."""
-    from vegs_torch import convert
+    versions (CPU tensors) on a reduced scene with two box instances: the
+    relative L2 error of every leaf -- the static field's, the means2d
+    tap, each box field's and each box's residual -- and the same for the
+    control: the kernel path with K2's f32 gradient rows rounded to bf16
+    (as a kernel that wrote them in the aux dtype would), through a tensor
+    hook on the blend's payload, and K3's box colour rows each one bf16
+    step toward zero.
+
+    A box's colour leaves are its K3 aux colour row (bf16; a box Gaussian
+    has about one instance, so K2's float32 order decides where that row
+    rounds) times SH constants: the plain run takes the card's value where
+    the two rows are one bf16 step apart (`k3_colour_rows`), and the share
+    of such values is held by COLOUR_MAX_FLIP_SHARE."""
+    from vegs_torch import boxmodel, convert
     from vegs_torch.config import VegsConfig
     from vegs_torch.ops.rasterize import RasterizeConfig
     from vegs_torch.perf.refscale import origin_camera
+    from vegs_torch.render import BoxInstance
     from vegs_torch.train import loss_fn
     from vegs_torch.utils.synthetic import unit_normal_map
 
@@ -747,28 +931,45 @@ def grad_check(dev, n=50_000, seed=SEED):
     }
     gt = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
     normal = unit_normal_map(h, w, seed)
+    boxes_np = grad_boxes(rng)
+    rows = n + sum(b[0]["valid"].shape[0] for b in boxes_np)
     cfg = RasterizeConfig(k_cap=1 << 21, k_pad=1 << 21)
     opt = VegsConfig().opt
-    grads, times = {}, {}
-    for run, d in (("card", dev), ("plain", torch.device("cpu")),
-                   ("control", dev)):
+    lam = VegsConfig().box.boxmodel_lambda_reg
+    grads, times, colour = {}, {}, {}
+    box_rows = slice(n, rows)
+    for run, d in (("card", dev), ("control", dev),
+                   ("plain", torch.device("cpu"))):
         field = convert.field_from_numpy(arrays, device=d)
-        tap = torch.zeros((n, 2), device=d, requires_grad=True)
+        bfields = [convert.field_from_numpy(b[0], device=d) for b in boxes_np]
+        deltas = [boxmodel.BoxDeltas(**{
+            k: torch.tensor(v, dtype=torch.float32, device=d,
+                            requires_grad=True) for k, v in b[2].items()})
+            for b in boxes_np]
+        insts = [BoxInstance(f, torch.from_numpy(b[1]).to(d), dl)
+                 for f, b, dl in zip(bfields, boxes_np, deltas)]
+        tap = torch.zeros((rows, 2), device=d, requires_grad=True)
         cam = origin_camera(h, w, 1.0, 0.3, d)
         args = (torch.from_numpy(gt).to(d), torch.from_numpy(normal).to(d))
         t0 = time.perf_counter()
         if run == "control":
             loss, st, _ = staged_loss(field, tap, cam, *args, 3,
-                                      torch.zeros(3, device=d), opt, cfg)
+                                      torch.zeros(3, device=d), opt, cfg,
+                                      boxes=insts, lambda_reg=lam)
             st.payload_f32.register_hook(
                 lambda g: g.to(torch.bfloat16).to(torch.float32))
             dropped = st.binned.num_dropped
         else:
             loss, _, _, out = loss_fn(field, tap, cam, *args, 1.0, 3,
                                       torch.zeros(3, device=d), opt_cfg=opt,
-                                      raster_cfg=cfg)
+                                      raster_cfg=cfg, boxes=insts,
+                                      lambda_reg=lam)
             dropped = out.num_dropped
-        loss.backward()
+        with k3_colour_rows(box_rows, shift=run == "control",
+                            adopt=colour["card"] if run == "plain"
+                            else None) as wrap:
+            loss.backward()
+        colour[run] = wrap.got
         if d.type == "cuda":
             torch.cuda.synchronize()
         times[run] = time.perf_counter() - t0
@@ -777,6 +978,11 @@ def grad_check(dev, n=50_000, seed=SEED):
         grads[run] = {k: getattr(field, k).grad.cpu()
                       for k in convert.FIELD_KEYS[:-1]}
         grads[run]["means2d"] = tap.grad.cpu()
+        for i, (f, dl) in enumerate(zip(bfields, deltas)):
+            for k in convert.FIELD_KEYS[:-1]:
+                grads[run][f"box{i} {k}"] = getattr(f, k).grad.cpu()
+            for k in boxmodel.BoxDeltas.LEAVES:
+                grads[run][f"delta{i} {k}"] = getattr(dl, k).grad.cpu()
     errs = {"card": {}, "control": {}}
     for k, ref in grads["plain"].items():
         for run in errs:
@@ -784,11 +990,34 @@ def grad_check(dev, n=50_000, seed=SEED):
             if not torch.isfinite(got).all() or float(ref.norm()) == 0:
                 raise AssertionError(f"step gradient {k}: not finite or zero")
             errs[run][k] = float((got - ref).norm() / ref.norm())
-    return {"scene": f"{h}x{w}, {n} Gaussians, bf16 aux",
+    box_leaves = [k for k in errs["card"] if k.startswith(("box", "delta"))]
+    colour_leaves = [k for k in box_leaves if k.endswith(("sh_dc", "sh_rest"))]
+    live = (colour["plain"] != 0) | (colour["card"] != 0)
+    steps = {run: bf16_steps(colour[run], colour["plain"])[live]
+             for run in errs}
+    flips = {run: {"one_step": int((s == 1).sum()),
+                   "beyond_one_step": int((s > 1).sum())}
+             for run, s in steps.items()}
+    return {"scene": f"{h}x{w}, {n} Gaussians and 2 boxes "
+                     f"({', '.join(str(b[0]['valid'].sum()) for b in boxes_np)}"
+                     f" Gaussians at capacities "
+                     f"{', '.join(str(len(b[0]['valid'])) for b in boxes_np)}"
+                     "), bf16 aux",
             "rel_l2_err": errs["card"],
             "reading": max(errs["card"].values()),
+            "box_reading": max(errs["card"][k] for k in box_leaves),
+            "colour_reading": max(errs["card"][k] for k in colour_leaves),
+            "colour_values": int(live.sum()),
+            "colour_flips": flips["card"],
+            "colour_flip_share": flips["card"]["one_step"] / int(live.sum()),
             "control_rel_l2_err": errs["control"],
             "control_reading": max(errs["control"].values()),
+            "box_control_reading": max(errs["control"][k] for k in box_leaves),
+            "colour_control_reading": max(errs["control"][k]
+                                          for k in colour_leaves),
+            "colour_control_flips": flips["control"],
+            "colour_control_flip_share": (flips["control"]["one_step"]
+                                          / int(live.sum())),
             "card_s": times["card"], "plain_cpu_s": times["plain"]}
 
 
@@ -903,19 +1132,23 @@ def train_phase(scene, dev, card) -> dict:
     return res
 
 
-def sized_config(field, cams_augs, device):
+def sized_config(field, cams_augs, device, boxes_of=None,
+                 probe_cap=PROBE_CAP):
     """Probe every view at a generous capacity and size k_cap/k_pad by the
-    largest need + 5% (as bench.py does), with the sat cull on."""
+    largest need + 5% (as bench.py does), with the sat cull on. With
+    `boxes_of` (camera -> its frame's `BoxInstance`s) the boxes are
+    rendered with the field, as `render_all` does."""
     from vegs_torch.ops.rasterize import RasterizeConfig
 
-    probe = RasterizeConfig(k_cap=PROBE_CAP, k_pad=PROBE_CAP, sat_cull=True,
+    probe = RasterizeConfig(k_cap=probe_cap, k_pad=probe_cap, sat_cull=True,
                             forward_only=True)
     need_raw = need_pad = 0
     for cam in cams_augs:
-        st = field_stage(field, cam.device_params(device), probe)
+        boxes = boxes_of(cam) if boxes_of else ()
+        st = field_stage(field, cam.device_params(device), probe, boxes)
         total = int(st.rb.total)
-        if total > PROBE_CAP:
-            raise AssertionError(f"probe capacity {PROBE_CAP} < need {total}")
+        if total > probe_cap:
+            raise AssertionError(f"probe capacity {probe_cap} < need {total}")
         need_raw = max(need_raw, total)
         need_pad = max(need_pad, int(st.binned.tile_starts[-1]))
     return RasterizeConfig(k_cap=r512(need_raw * 1.05),
@@ -943,6 +1176,254 @@ def write_field_ply(path: Path, n: int, seed: int) -> None:
     field = gaussians.from_ply_arrays(xyz, f_dc, f_rest, opac, scale, rot,
                                       device="cpu")
     save_gaussian_ply(path, field)
+
+
+def box_poses(n_frames=3):
+    """{frame: {instance: box2world}} of the boxes phase's vehicles: car
+    boxes at depths BOX_DEPTHS across the frame, yaw angles BOX_YAWS (away
+    from the ties of `rotmat_to_quat` at 0 and pi/2), each driving 0.6 m
+    along x per frame."""
+    poses = {f: {} for f in range(n_frames)}
+    for j, (z, yaw, u) in enumerate(zip(BOX_DEPTHS, BOX_YAWS, BOX_LATERAL)):
+        for f in range(n_frames):
+            center = (u * np.tan(0.6) * z + 0.6 * f, 0.05 * z, z)
+            poses[f][BOX_INST0 + j] = car_box2world(yaw, center)
+    return poses
+
+
+def footprint_share(cam, box2world) -> float:
+    """The share of the frame inside the screen rectangle of a box's eight
+    projected corners (clipped to the frame; 0 if a corner lies behind the
+    near plane)."""
+    corners = np.array([[x, y, z, 1.0] for x in (-0.5, 0.5)
+                        for y in (-0.5, 0.5) for z in (-0.5, 0.5)])
+    p = corners @ box2world.T.astype(np.float64) @ cam.full_proj_transform
+    if (p[:, 3] <= 0.2).any():
+        return 0.0
+    px = ((p[:, 0] / p[:, 3] + 1.0) * cam.image_width - 1.0) * 0.5
+    py = ((p[:, 1] / p[:, 3] + 1.0) * cam.image_height - 1.0) * 0.5
+    w = np.clip(px.max(), 0, cam.image_width) - np.clip(px.min(), 0,
+                                                         cam.image_width)
+    h = np.clip(py.max(), 0, cam.image_height) - np.clip(py.min(), 0,
+                                                          cam.image_height)
+    return float(w * h / (cam.image_width * cam.image_height))
+
+
+def boxes_phase(dev, card) -> dict:
+    """The dynamic-scene training path at full width (see phase 11)."""
+    from vegs_torch import optim
+    from vegs_torch.boxmodel import BoxDeltas
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.ops import rasterize
+    from vegs_torch.ops.rasterize import RasterizeConfig
+    from vegs_torch.render import BoxInstance, render_all
+    from vegs_torch.scene import Scene, initialize_box_field, save_gaussian_ply
+    from vegs_torch.scene.dataset_readers import (DynamicPointCloud,
+                                                  SceneInfo, getNerfppNorm)
+    from vegs_torch.train import Trainer
+    from vegs_torch.utils.synthetic import (mover_canonical_points,
+                                            street_camera_infos,
+                                            unit_normal_map)
+
+    t0 = time.perf_counter()
+    poses = box_poses()
+    insts = list(poses[0])
+    rng = np.random.default_rng(SEED + 11)
+    pts, cols = zip(*[mover_canonical_points(rng, n=BOX_POINTS)
+                      for _ in insts])
+    world = [(np.c_[p, np.ones(len(p))] @ poses[0][i].T)[:, :3]
+             for p, i in zip(pts, insts)]
+    dyn = DynamicPointCloud(
+        points=np.concatenate(world).astype(np.float32),
+        colors=np.concatenate(cols),
+        instances=np.repeat(insts, [len(p) for p in pts]),
+        timestamps=np.zeros(sum(len(p) for p in pts), int))
+    infos = street_camera_infos(3, H, W, fovx=1.2, fovy=0.4)
+    info = SceneInfo(point_cloud=None, train_cameras=infos, test_cameras=[],
+                     nerf_normalization=getNerfppNorm(infos), ply_path="",
+                     dyn_point_cloud=dyn, train_bboxes=poses,
+                     instances_info=insts)
+    with tempfile.TemporaryDirectory() as model_dir:
+        base = Path(model_dir)
+        write_field_ply(base / "point_cloud" / "iteration_1"
+                        / "point_cloud.ply", N_REF, SEED)
+        for i in insts:  # each instance's field, from its points
+            save_gaussian_ply(base / f"instance_{i}" / "point_cloud"
+                              / "iteration_1" / "point_cloud.ply",
+                              initialize_box_field(dyn, i, poses,
+                                                   device="cpu"))
+        scene = Scene(model_dir, info, load_iteration=-1, shuffle=False,
+                      device=dev)
+    cams = scene.getTrainCameras()
+    shares = {f"{c.frame}/{i}": footprint_share(c, poses[c.frame][i])
+              for c in cams for i in insts}
+    if min(shares.values()) < 0.005:
+        raise AssertionError(f"a box covers < 0.5% of a frame: {shares}")
+    box_rows = {i: int(f.num_active()) for i, f in scene.box_gaussians.items()}
+    tcfg = VegsConfig()
+    tcfg.opt.densification_interval = DENSIFY_EVERY
+    trainer = Trainer(tcfg, scene, raster_cfg=RasterizeConfig(), device=dev)
+    setup_s = time.perf_counter() - t0
+
+    # 1. the normal-prior init, on the 3 cameras' normal maps
+    for i, cam in enumerate(cams):
+        cam.normal = unit_normal_map(H, W, seed=i)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_init = trainer.init_from_normals()
+    torch.cuda.synchronize()
+    norm_init_ms = (time.perf_counter() - t1) * 1e3
+
+    def boxes_of(cam, deltas=False):
+        f = int(cam.frame)
+        return [BoxInstance(trainer.box_fields[i],
+                            torch.from_numpy(poses[f][i]).to(dev),
+                            trainer.frame_deltas.get((f, i)) if deltas
+                            else None) for i in insts]
+
+    # 2. ground truth at the annotated poses, then perturbed colours and
+    # residuals a seeded 0.05 off identity
+    with torch.inference_mode():
+        cfg, need_raw, need_pad = sized_config(
+            trainer.state.field, cams, dev, boxes_of, BOX_PROBE_CAP)
+        tiles = -(-H // 16) * -(-W // 16)
+        if cfg.k_cap < rasterize.SAT_MIN_SLOTS_PER_TILE * tiles:
+            raise AssertionError("the sat-cull gate should be on at this scale")
+        for cam in cams:
+            out, _ = render_all(cam.device_params(dev), trainer.state.field,
+                                boxes_of(cam), bg=trainer.bg,
+                                config=cfg._replace(forward_only=True))
+            if int(out.num_dropped):
+                raise AssertionError("ground-truth render drops instances")
+            cam.image = torch.clamp(out.rgb, 0, 1).cpu().numpy()
+    trainer.raster_cfg = cfg
+    with torch.no_grad():
+        for f in [trainer.state.field, *trainer.box_fields.values()]:
+            f.sh_dc += 0.35
+    for cam in cams:
+        for i in insts:
+            d = BoxDeltas.identity(device=dev)
+            off = rng.normal(size=3)
+            d.delta_t = torch.tensor(0.05 * off / np.linalg.norm(off),
+                                     dtype=torch.float32, device=dev)
+            trainer.frame_deltas[(int(cam.frame), i)] = d
+            trainer.frame_delta_opts[(int(cam.frame), i)] = \
+                optim.tensor_adam_init(d.as_dict())
+
+    def delta_err():
+        return float(torch.stack([d.delta_t.norm() for d in
+                                  trainer.frame_deltas.values()]).mean())
+
+    err_before = delta_err()
+
+    # 3. eight box steps, one densify at 3008 over the field and every box
+    counters = main_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    steps = []
+    caps_before = {i: f.capacity for i, f in trainer.box_fields.items()}
+    its = range(TRAIN_FIRST_IT, TRAIN_FIRST_IT + TRAIN_STEPS)
+    for it, ci in zip(its, TRAIN_CAMS):
+        before = {k: c.launches for k, c in counters.items()}
+        t1 = time.perf_counter()
+        m = trainer.train_iteration(it, camera=cams[ci])
+        torch.cuda.synchronize()
+        steps.append({"it": it, "cam": ci, "ms": (time.perf_counter() - t1) * 1e3,
+                      "densify": it % DENSIFY_EVERY == 0,
+                      "launches": {k: c.launches - before[k]
+                                   for k, c in counters.items()},
+                      **{k: m[k] for k in ("loss", "num_dropped",
+                                            "num_needed", "num_needed_raw")}})
+        if m["num_dropped"]:
+            raise AssertionError(f"box step {it} dropped instances: {steps[-1]}")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    caps_after = {i: f.capacity for i, f in trainer.box_fields.items()}
+    err_after = delta_err()
+    losses = [st["loss"] for st in steps]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"box step losses not finite: {losses}")
+    if any(v != TRAIN_STEPS for v in launches.values()):
+        raise AssertionError(f"K1-K4 launches in {TRAIN_STEPS} box steps: "
+                             f"{launches}")
+    if not (np.isfinite(err_before) and np.isfinite(err_after)):
+        raise AssertionError(f"delta errors {err_before}, {err_after}")
+    n_rows_after = {i: int(f.num_active()) for i, f in trainer.box_fields.items()}
+    if n_rows_after == box_rows:
+        raise AssertionError("the densify left every box as it was")
+
+    # where a box step's time goes: 2 more steps, on the densified fields
+    with torch.inference_mode():
+        new, _, _ = sized_config(trainer.state.field, cams, dev,
+                                 lambda c: boxes_of(c, deltas=True),
+                                 BOX_PROBE_CAP)
+    trainer.raster_cfg = trainer.raster_cfg._replace(
+        k_cap=max(new.k_cap, trainer.raster_cfg.k_cap),
+        k_pad=max(new.k_pad, trainer.raster_cfg.k_pad))
+    after = []
+
+    def two_steps():
+        for it, ci in zip(range(its.stop, its.stop + 2), TRAIN_CAMS):
+            after.append(trainer.train_iteration(it, camera=cams[ci]))
+
+    prof = profile_frames(two_steps)
+    if any(m["num_dropped"] or not np.isfinite(m["loss"]) for m in after):
+        raise AssertionError(f"box steps on the densified fields: {after}")
+
+    # 4. serving with the boxes: render_all on the 3 frames
+    with torch.inference_mode():
+        scfg, s_raw, s_pad = sized_config(
+            trainer.state.field, cams, dev,
+            lambda c: boxes_of(c, deltas=True), BOX_PROBE_CAP)
+        scfg = scfg._replace(forward_only=True)
+
+        def frame(cam):
+            out, _ = render_all(cam.device_params(dev), trainer.state.field,
+                                boxes_of(cam, deltas=True), bg=trainer.bg,
+                                config=scfg)
+            return out
+
+        frame(cams[0])  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t1 = time.perf_counter()
+        outs = [frame(cam) for cam in cams]
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t1) * 1e3 / len(cams)
+        serve_launches = {k: counters[k].launches for k in ("K1", "K4")}
+        for out in outs:
+            if int(out.num_dropped) or not torch.isfinite(out.rgb).all():
+                raise AssertionError("a render_all frame drops or is not finite")
+        st = field_stage(trainer.state.field, cams[0].device_params(dev),
+                         scfg, boxes_of(cams[0], deltas=True))
+        k4 = compare_k4(st)
+        k1 = compare_k1(st)
+    plain = [s_["ms"] for s_ in steps[1:] if not s_["densify"]]
+    res = {"instances": len(insts), "box_rows": box_rows,
+           "box_rows_after": n_rows_after,
+           "box_capacity": [caps_before, caps_after],
+           "footprint_share": shares, "norm_init_ms": norm_init_ms,
+           "norm_init_count": n_init, "k_cap": cfg.k_cap, "k_pad": cfg.k_pad,
+           "need_raw": need_raw, "need_pad": need_pad, "loss": losses,
+           "ms_per_step": float(np.median(plain)),
+           "ms_steps": [s_["ms"] for s_ in steps],
+           "densify_step_ms": next(s_["ms"] for s_ in steps if s_["densify"]),
+           "max_memory_allocated": peak, "launches": launches,
+           "delta_t_err": [err_before, err_after],
+           "n_active": [N_REF, int(trainer.state.field.num_active())],
+           "serve_ms_per_frame": serve_ms, "serve_launches": serve_launches,
+           "serve_need_raw": s_raw, "serve_need_pad": s_pad,
+           "setup_s": setup_s, "per_step": steps}
+    emit("boxes", card=card, **res)
+    emit("boxes_profile", card=card, steps=2,
+         loss=[m["loss"] for m in after], **prof)
+    scene_name = "376x1408, 2,233,571 Gaussians + 8 boxes, render_all frame"
+    emit("k4_check", scene=scene_name, card=card, **k4)
+    emit("k1_check", scene=scene_name, aux="bf16", card=card, **k1)
+    return {**res, "k1": k1, "k4": k4}
 
 
 def kernel_times(kernel, plain, library) -> dict:
@@ -1318,10 +1799,14 @@ def main() -> int:
 
     # K3 as the main path runs it: the gather's whole backward
     gidx = step_st.binned.gidx
-    k3f = compare_k3_fused(k3_args, gidx)
+    k3f = compare_k3_fused(k3_args, step_st)
     k3_ms = cuda_ms(lambda: segreduce.gather_expand_bwd(*k3_args))
     d_pf, d_pa, order, ends = k3_args
-    k3_lib_ms = cuda_ms(lambda: k3_library(d_pf, d_pa, gidx, ends.shape[0]))
+    k3_lib = k3_library(step_st.pay_rows, d_pa.dtype, gidx)
+    k3_lib_ms = cuda_ms(lambda: k3_lib(d_pf, d_pa))
+    k3_index_add_ms = cuda_ms(lambda: k3_index_add(d_pf, d_pa, gidx,
+                                                   ends.shape[0]))
+    del k3_lib
     k3f_bytes, k3f_ops = roofline.k3_fused_work(k3f["rows"], ends.shape[0],
                                                 d_pa.element_size())
     k3f_bound, k3f_by = roofline.bound_ms(roofline.Work(k3f_bytes, k3f_ops))
@@ -1329,7 +1814,8 @@ def main() -> int:
     emit("k3_fused", scene="376x1408, 2,233,571 Gaussians, first train step",
          card=card, ms=k3_ms, bound_ms=k3f_bound, bound_by=k3f_by,
          bytes=k3f_bytes, ops=k3f_ops, limit=K3_RTOL, library_ms=k3_lib_ms,
-         spans=segreduce.span_stats(ends), gather_bwd=k3_ways, **k3f)
+         index_add_ms=k3_index_add_ms, spans=segreduce.span_stats(ends),
+         gather_bwd=k3_ways, **k3f)
     for rows in ("f32_rows", "aux_rows"):
         hold(f"K3 fused {rows}", k3f[rows]["reading"], K3_RTOL,
              k3f[rows]["control_reading"])
@@ -1365,21 +1851,36 @@ def main() -> int:
     emit("grad_check", card=card, limit=GRAD_RTOL, **grad)
     hold("step gradients", grad["reading"], GRAD_RTOL,
          grad["control_reading"])
+    hold("step gradients, box and delta leaves", grad["box_reading"],
+         GRAD_RTOL, grad["box_control_reading"])
+    hold("step gradients, box colour leaves", grad["colour_reading"],
+         GRAD_RTOL, grad["colour_control_reading"])
+    hold("box colour rows one bf16 step from the plain version's",
+         grad["colour_flip_share"], COLOUR_MAX_FLIP_SHARE,
+         grad["colour_control_flip_share"])
 
-    # -- 10. the measurement path, on a card freed of the earlier phases ----
     del scene, views, frames, st, on, off
     torch.cuda.empty_cache()
+
+    # -- 11. the dynamic-scene training path at full width ---------------------
+    boxes = boxes_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 12. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
 
-    # -- 11. summary ---------------------------------------------------------
+    # -- 13. summary ---------------------------------------------------------
     launches = {**train["launches"]}
     m1, m2 = perf["M1"], perf["M2"]
+    # launches: the static train phase's 8 steps; launches_boxes: the
+    # boxes phase's 8 steps
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
          "source": "vegs_torch/csrc/blend_fwd.cu",
          "replaces": "vegs_tpu/ops/blend_pallas.py:201",
-         "launches": launches["K1"], "matches_plain": True,
+         "launches": launches["K1"],
+         "launches_boxes": boxes["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -1389,7 +1890,8 @@ def main() -> int:
         {"name": "K2 blend_bwd", "route": "cuda",
          "source": "vegs_torch/csrc/blend_bwd.cu",
          "replaces": "vegs_tpu/ops/blend_pallas.py:274",
-         "launches": launches["K2"], "matches_plain": True,
+         "launches": launches["K2"],
+         "launches_boxes": boxes["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -1401,19 +1903,23 @@ def main() -> int:
         {"name": "K3 segreduce", "route": "cuda",
          "source": "vegs_torch/csrc/segreduce.cu",
          "replaces": "vegs_tpu/ops/segreduce.py:46",
-         "launches": launches["K3"], "matches_plain": True,
+         "launches": launches["K3"],
+         "launches_boxes": boxes["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
          "ms": k3_ms, "plain_ms": k3f["plain_ms"],
          "bound_ms": k3f_bound, "bound_by": k3f_by, "library_ms": k3_lib_ms,
-         "library": "index_add_ of d_pf and d_pa by gidx (autograd's own)",
+         "library": "autograd's own backward of pay[gidx].T.contiguous() "
+                    "(accumulating index_put_ on the row-major tables)",
+         "index_add_ms": k3_index_add_ms,
          "device_ms_columns_path": k3_ways["columns"]["device_ms"],
          "jax_contract": k3_contract},
         {"name": "K4 satcount", "route": "cuda",
          "source": "vegs_torch/csrc/satcount.cu",
          "replaces": "vegs_tpu/ops/satcull.py:65",
-         "launches": launches["K4"], "matches_plain": True,
+         "launches": launches["K4"],
+         "launches_boxes": boxes["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,

@@ -540,3 +540,158 @@ def test_probe_kernels_refuse_misaligned_input(cuda):
     for fn in (micro3.psum_consume, micro3.transpose):
         with pytest.raises(ValueError, match="aligned"):
             fn(x)
+
+
+def _box_parts(device, seed=4):
+    """Two box instances of different capacities (3,000 and 2,000 Gaussians
+    on the box's faces, at opacities near a box field's seed, ~0.18, at
+    4096 and 8192 rows), small boxes at depths 1.1 and 1.3, in front of
+    the static field (whose nearest splats, up to 0.3 across from depth
+    1.5, hide what lies behind them), yaw 0.3 and 1.1 rad, residuals a
+    little off identity (deltas require grad)."""
+    from vegs_torch import convert
+    from vegs_torch.boxmodel import BoxDeltas
+    from vegs_torch.render import BoxInstance
+
+    rng = np.random.default_rng(seed)
+    parts = []
+    for (n, cap), yaw, t in zip(((3000, 4096), (2000, 8192)), (0.3, 1.1),
+                                ((-0.3, 0.03, 1.1), (0.3, -0.03, 1.3))):
+        f = {"means": np.zeros((cap, 3)), "quats": np.zeros((cap, 4)),
+             "log_scales": np.full((cap, 3), np.log(1e-7)),
+             "sh_dc": np.zeros((cap, 1, 3)), "sh_rest": np.zeros((cap, 15, 3)),
+             "opacity_logit": np.zeros((cap, 1)), "valid": np.zeros(cap, bool)}
+        p = rng.uniform(-0.5, 0.5, (n, 3))  # on the box's faces
+        face = rng.integers(0, 6, n)
+        p[np.arange(n), face // 2] = np.where(face % 2, 0.5, -0.5)
+        f["means"][:n] = p
+        f["quats"][:n] = rng.normal(size=(n, 4))
+        f["log_scales"][:n] = np.log(rng.uniform(0.01, 0.03, (n, 3)))
+        f["sh_dc"][:n] = rng.normal(0, 0.5, (n, 1, 3))
+        f["opacity_logit"][:n] = rng.normal(-1.5, 0.5, (n, 1))
+        f["valid"][:n] = True
+        c, s = np.cos(yaw), np.sin(yaw)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]) @ np.diag(
+            [0.3, 0.2, 0.25])
+        m[:3, 3] = t
+        d = {"delta_r": np.r_[1.0, 0, 0, 0] + rng.normal(0, 0.02, 4),
+             "delta_s": 1.0 + rng.normal(0, 0.02, 3),
+             "delta_t": rng.normal(0, 0.05, 3)}
+        parts.append(BoxInstance(
+            convert.field_from_numpy(f, device=device),
+            torch.from_numpy(m).to(device),
+            BoxDeltas(**{k: torch.tensor(v, dtype=torch.float32,
+                                         device=device, requires_grad=True)
+                         for k, v in d.items()})))
+    return parts
+
+
+def _static_field(device, n=3000, seed=2):
+    from vegs_torch import convert
+
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(1.5, 10.0, n)
+    return convert.field_from_numpy({
+        "means": np.stack([rng.uniform(-0.45, 0.45, n) * z,
+                           rng.uniform(-0.18, 0.18, n) * z, z], 1),
+        "quats": rng.normal(size=(n, 4)),
+        "log_scales": np.log(rng.uniform(0.02, 0.3, (n, 3))),
+        "sh_dc": rng.normal(0, 0.5, (n, 1, 3)),
+        "sh_rest": rng.normal(0, 0.1, (n, 15, 3)),
+        "opacity_logit": rng.normal(0, 1.5, (n, 1)),
+        "valid": np.ones(n, bool)}, device=device)
+
+
+def test_render_all_with_boxes_kernels_match_plain(cuda):
+    """`render_all` of a field and two boxes on the card launches K4 and
+    K1 once each; K1 and K4 on that frame's concatenated inputs hold
+    against their plain versions (the limits of the tests above); and the
+    card's render equals the CPU's (plain versions) within 1e-4 on >=
+    99.9% of the rgb values."""
+    from vegs_torch.render import (_box_arrays, _concat_arrays, field_arrays,
+                                   render_all)
+
+    cfg = CFG._replace(k_cap=1 << 18, k_pad=1 << 18)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        field, boxes = _static_field(dev), _box_parts(dev)
+        _, cam = _scene(dev, n=10)
+        before = (blend_cuda.blend.launches, satcull.satcount_gathered.launches)
+        with torch.no_grad():
+            out, bounds = render_all(cam, field, boxes, config=cfg)
+        launched = (blend_cuda.blend.launches - before[0],
+                    satcull.satcount_gathered.launches - before[1])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+        assert bounds == [0, 3000, 7096, 15288] and int(out.num_dropped) == 0
+        outs[dev.type] = out
+        if dev.type == "cuda":
+            with torch.no_grad():
+                a = _concat_arrays([field_arrays(field)]
+                                   + [_box_arrays(b, 3) for b in boxes])
+                st = stage(a.means, a.quats, a.scales, a.opacities, a.shs,
+                           cam, valid=a.valid, config=cfg)
+            assert st.sat_counts is not None
+            k4 = satcull.satcount_gathered(st.pay_rows, st.rb.gidx_sorted,
+                                           st.rb.raw_starts, st.grid)
+            k4_ref = satcull.satcount_gathered_ref(
+                st.pay_rows, st.rb.gidx_sorted, st.rb.raw_starts, st.grid)
+            dk = (k4.long() - k4_ref.long()).abs()
+            assert bool(((dk == 0) | (dk == 256)).all())
+            g = st.grid
+            args = (st.payload_f32, st.payload_aux, st.binned.tile_starts, g,
+                    g.padded_height, g.padded_width)
+            k1, stop = blend_cuda.blend(*args, return_stop=True)
+            ref, stop_ref = blend_cuda.blend_ref_tiles(*args, return_stop=True)
+            torch.cuda.synchronize()
+            flips = stop != stop_ref
+            bad = ((k1 - ref).abs() > 1e-5 + 1e-4 * ref.abs()).any(dim=0) & ~flips
+            assert int(bad.sum()) == 0
+            assert int(flips.sum()) <= 1e-3 * flips.numel()
+    d = (outs["cuda"].rgb.cpu() - outs["cpu"].rgb).abs()
+    assert float((d <= 1e-4).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("aux", ["f32", "bf16"])
+def test_box_step_grads_kernels_match_plain(cuda, aux):
+    """One training step's gradients with two boxes -- every static leaf,
+    the means2d tap, every leaf of both box fields and of both residuals --
+    through the kernels on the card against the plain versions on the CPU:
+    relative L2 error <= 1e-4 per leaf."""
+    from vegs_torch import convert
+    from vegs_torch.boxmodel import BoxDeltas
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.train import loss_fn
+
+    rng = np.random.default_rng(3)
+    gt = rng.uniform(0, 1, (3, H, W)).astype(np.float32)
+    normal = rng.normal(size=(3, H, W)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=0, keepdims=True)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        field, boxes = _static_field(dev), _box_parts(dev)
+        _, cam = _scene(dev, n=10)
+        rows = field.capacity + sum(b.field.capacity for b in boxes)
+        tap = torch.zeros((rows, 2), device=dev, requires_grad=True)
+        loss, *_ = loss_fn(field, tap, cam, torch.from_numpy(gt).to(dev),
+                           torch.from_numpy(normal).to(dev), 1.0, 3,
+                           torch.zeros(3, device=dev),
+                           opt_cfg=VegsConfig().opt,
+                           raster_cfg=CFG._replace(
+                               k_cap=1 << 18, k_pad=1 << 18,
+                               forward_only=False, payload_dtype=aux),
+                           boxes=boxes, lambda_reg=1e-3)
+        loss.backward()
+        g = {k: getattr(field, k).grad.cpu() for k in convert.FIELD_KEYS[:-1]}
+        g["means2d"] = tap.grad.cpu()
+        for i, b in enumerate(boxes):
+            g.update({f"box{i} {k}": getattr(b.field, k).grad.cpu()
+                      for k in ("means", "quats", "log_scales", "sh_dc",
+                                "opacity_logit")})
+            g.update({f"delta{i} {k}": getattr(b.deltas, k).grad.cpu()
+                      for k in BoxDeltas.LEAVES})
+        grads[dev.type] = g
+    for k, ref in grads["cpu"].items():
+        err = float((grads["cuda"][k] - ref).norm() / ref.norm())
+        print(f"box step gradient {aux} {k}: {err}")
+        assert ref.norm() > 0 and err <= GRAD_RTOL, (k, err)

@@ -200,7 +200,8 @@ def test_port_imports_neither_jax_nor_vegs_tpu():
     for m in ("train", "optim", "densify", "config", "losses.photometric",
               "losses.normal_guidance", "ops.segreduce", "ops.blend_cuda",
               "ops.rasterize", "scene.dataset_readers", "perf.micro3",
-              "perf.refscale", "perf.roofline", "perf.timing"):
+              "perf.refscale", "perf.roofline", "perf.timing", "boxmodel",
+              "priors.norminit", "utils.synthetic"):
         assert f"vegs_torch.{m}" in loaded, m
 
 

@@ -161,3 +161,39 @@ def test_index_add_by_gidx_matches_plain(sat):
     lib_a = torch.zeros(16, n + 1).index_add_(1, bt.gidx, d_pa)
     assert torch.equal(lib_f[:, :n].T, want_f[:n])
     assert torch.equal(lib_a[:, :n].T, want_a[:n])
+
+
+@pytest.mark.parametrize("aux", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sat", [False, True], ids=["full", "sat_cull"])
+def test_k3_library_is_autograds_own_backward(sat, aux):
+    """K3's library yardstick in chip_smoke.py (`k3_library`) is
+    `torch.autograd.grad` of `pay[g].T.contiguous()` and its aux half, to
+    the bit, on a real binning at full capacity and with the sat cull on;
+    and, on integer cotangents (exact sums), it equals the gather's
+    backward (K3's plain version) on rows 0..n-1."""
+    import chip_smoke
+    from tests.test_torch_rasterize_grad import _binned_both
+
+    n, _, bt, _ = _binned_both(sat)
+    k = bt.gidx.shape[0]
+    rng = np.random.default_rng(4)
+    pay = torch.from_numpy(rng.normal(size=(n + 1, 8)).astype(np.float32))
+    d_pf = torch.from_numpy(rng.integers(-8, 8, (8, k)).astype(np.float32))
+    d_pa = torch.from_numpy(rng.integers(-8, 8, (16, k)).astype(np.float32)
+                            ).to(aux)
+    got = chip_smoke.k3_library(pay, aux, bt.gidx)(d_pf, d_pa)
+    again = chip_smoke.k3_library(pay, aux, bt.gidx)(d_pf, d_pa)
+
+    pf = pay.clone().requires_grad_(True)
+    pa = torch.zeros((n + 1, 16), dtype=aux, requires_grad=True)
+    g = bt.gidx.long()
+    want = torch.autograd.grad((pf[g].T.contiguous(), pa[g].T.contiguous()),
+                               (pf, pa), (d_pf, d_pa))
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c)
+    ends = torch.cat([bt.gauss_ends, bt.gauss_ends[-1:]])
+    ref = segreduce.gather_expand_bwd(d_pf, d_pa, bt.order, ends)
+    assert torch.equal(got[0][:n], ref[0][:n])
+    assert torch.equal(got[1][:n], ref[1][:n])
+    assert got[0].abs().sum() > 0

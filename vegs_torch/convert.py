@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 from . import config as config_lib, resolve_device
+from .boxmodel import BoxDeltas
 from .gaussians import DensifyStats, GaussianField
 from .ops.projection import CameraParams
-from .optim import PARAM_LEAVES
+from .optim import PARAM_LEAVES, TensorAdamState
 
 FIELD_KEYS = ("means", "quats", "log_scales", "sh_dc", "sh_rest",
               "opacity_logit", "valid")
@@ -92,6 +93,112 @@ def train_state_to_numpy(state) -> dict:
                 "count": int(state.opt["count"])},
         "stats": {k: n(getattr(state.stats, k)) for k in STATS_KEYS},
         "step": int(state.step),
+    }
+
+
+def box_deltas_from_numpy(arrays: dict, device=None) -> BoxDeltas:
+    """{delta_r, delta_s, delta_t} (numpy) -> BoxDeltas."""
+    dev = resolve_device(device)
+    return BoxDeltas(**{k: torch.from_numpy(
+        np.array(arrays[k], np.float32, copy=True)).to(dev)
+        for k in BoxDeltas.LEAVES})
+
+
+def box_deltas_to_numpy(deltas: BoxDeltas) -> dict:
+    """Inverse of `box_deltas_from_numpy`."""
+    return {k: v.detach().cpu().numpy() for k, v in deltas.as_dict().items()}
+
+
+def tensor_adam_from_numpy(arrays: dict, device=None) -> TensorAdamState:
+    """{"mu": {name: array}, "nu": {name: array}, "count"} (the JAX
+    TensorAdamState's leaves) -> TensorAdamState (count on the CPU)."""
+    dev = resolve_device(device)
+
+    def t(d):
+        return {k: torch.from_numpy(np.array(v, np.float32, copy=True)).to(dev)
+                for k, v in d.items()}
+
+    return TensorAdamState(mu=t(arrays["mu"]), nu=t(arrays["nu"]),
+                           count=torch.tensor(int(arrays["count"]),
+                                              dtype=torch.int32))
+
+
+def tensor_adam_to_numpy(state: TensorAdamState) -> dict:
+    """Inverse of `tensor_adam_from_numpy`."""
+    def n(d):
+        return {k: v.detach().cpu().numpy() for k, v in d.items()}
+
+    return {"mu": n(state.mu), "nu": n(state.nu), "count": int(state.count)}
+
+
+BOX_STATE_KEYS = ("box_fields", "box_opts", "box_stats", "frame_deltas",
+                  "frame_delta_opts")
+
+
+def box_state_from_numpy(arrays: dict, device=None) -> dict:
+    """A Trainer's box state from the JAX Trainer's, exported as numpy:
+    {"box_fields": {inst: {FIELD_KEYS}}, "box_opts": {inst: {"mu": {leaf},
+    "nu": {leaf}, "count"}}, "box_stats": {inst: {STATS_KEYS}},
+    "frame_deltas": {(frame, inst): {delta_r, delta_s, delta_t}},
+    "frame_delta_opts": {(frame, inst): tensor Adam arrays}} -> the same
+    keys, which are the port Trainer's attribute names, with port objects.
+
+    Each box field keeps its valid rows in order, first (with their
+    moments and statistics), at the array's capacity. (While its boxes are
+    pooled, the JAX Trainer pads every box to the largest box's capacity;
+    the padding rows are invalid, so they render nothing.)"""
+    dev = resolve_device(device)
+
+    def rows(valid, cap):
+        idx = np.nonzero(np.asarray(valid, bool))[0]
+
+        def take(x):
+            x = np.asarray(x)
+            out = np.zeros((cap,) + x.shape[1:], x.dtype)
+            out[:len(idx)] = x[idx]
+            return out
+
+        return take
+
+    out = {k: {} for k in BOX_STATE_KEYS}
+    for inst, f in arrays["box_fields"].items():
+        take = rows(f["valid"], len(f["valid"]))
+        out["box_fields"][inst] = field_from_numpy(
+            {k: take(f[k]) for k in FIELD_KEYS}, device=dev)
+        o = arrays["box_opts"][inst]
+        out["box_opts"][inst] = {
+            **{m: {k: torch.from_numpy(take(o[m][k]).astype(np.float32)
+                                       ).to(dev) for k in PARAM_LEAVES}
+               for m in ("mu", "nu")},
+            "count": torch.tensor(int(o["count"]), dtype=torch.int32)}
+        out["box_stats"][inst] = DensifyStats(**{
+            k: torch.from_numpy(take(arrays["box_stats"][inst][k]
+                                     ).astype(np.float32)).to(dev)
+            for k in STATS_KEYS})
+    for key, d in arrays["frame_deltas"].items():
+        out["frame_deltas"][key] = box_deltas_from_numpy(d, device=dev)
+        out["frame_delta_opts"][key] = tensor_adam_from_numpy(
+            arrays["frame_delta_opts"][key], device=dev)
+    return out
+
+
+def box_state_to_numpy(trainer) -> dict:
+    """A port Trainer's box state in the layout of `box_state_from_numpy`."""
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    return {
+        "box_fields": {i: field_to_numpy(f)
+                       for i, f in trainer.box_fields.items()},
+        "box_opts": {i: {**{m: {k: n(o[m][k]) for k in PARAM_LEAVES}
+                            for m in ("mu", "nu")}, "count": int(o["count"])}
+                     for i, o in trainer.box_opts.items()},
+        "box_stats": {i: {k: n(getattr(st, k)) for k in STATS_KEYS}
+                      for i, st in trainer.box_stats.items()},
+        "frame_deltas": {k: box_deltas_to_numpy(d)
+                         for k, d in trainer.frame_deltas.items()},
+        "frame_delta_opts": {k: tensor_adam_to_numpy(o)
+                             for k, o in trainer.frame_delta_opts.items()},
     }
 
 

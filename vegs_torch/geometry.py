@@ -272,3 +272,25 @@ def fov_to_focal(fov: float, pixels: float) -> float:
 
 def focal_to_fov(focal: float, pixels: float) -> float:
     return 2.0 * np.arctan(pixels / (2.0 * focal))
+
+
+# ---------------------------------------------------------------------------
+# Normal-map helpers (for the covariance-surface alignment prior)
+# ---------------------------------------------------------------------------
+
+
+def normal_to_rot(normals: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices whose FIRST column is the given normal
+    (normalized), the other columns an orthonormal completion built from
+    a helper axis: x when |n_x| < 0.9, else y. [..., 3] -> [..., 3, 3]."""
+    n = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True),
+                              min=1e-12)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
+    ref = torch.where(torch.abs(n[..., :1]) < 0.9, ex.expand_as(n),
+                      ey.expand_as(n))
+    b = torch.linalg.cross(n, ref, dim=-1)
+    b = b / torch.clamp(torch.linalg.norm(b, dim=-1, keepdim=True), min=1e-12)
+    c = torch.linalg.cross(n, b, dim=-1)
+    return torch.stack([n, b, c], dim=-1)  # columns
+

@@ -185,3 +185,14 @@ def project(
         visible=visible,
         radii_xy=radii_xy,
     )
+
+
+def mark_visible(means3d: torch.Tensor, viewmatrix: torch.Tensor,
+                 projmatrix: torch.Tensor) -> torch.Tensor:
+    """Frustum test of the rasterizer's markVisible: view-space z > ZNEAR.
+    Returns bool [N]. (`projmatrix` is unused, as in the JAX version.)"""
+    n = means3d.shape[0]
+    homog = torch.cat([means3d, torch.ones((n, 1), dtype=means3d.dtype,
+                                           device=means3d.device)], dim=1)
+    p_view = homog @ viewmatrix
+    return p_view[:, 2] > ZNEAR

@@ -12,10 +12,14 @@ Learning rates (the reference's training_setup):
            * spatial_scale over position_lr_max_steps (log-lerp with delay)
   sh_dc:   feature_lr;  sh_rest: feature_lr / 20
   opacity: opacity_lr;  log_scales: scaling_lr;  quats: rotation_lr
+
+`tensor_adam_*` is a plain Adam over a dict of small tensors (the box
+deltas), with eps 1e-8 where the field's Adam uses the reference's 1e-15.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -55,12 +59,14 @@ class FieldLRs(NamedTuple):
 
 
 def field_lrs(opt: OptimizationParams, spatial_scale: float,
-              step) -> FieldLRs:
-    """Per-leaf learning rates at `step`."""
+              step, xyz_lr_mult: float = 1.0) -> FieldLRs:
+    """Per-leaf learning rates at `step`. `xyz_lr_mult` is the box model's
+    box_lr_mult (box fields use spatial_scale 1: they live in the unit
+    canonical box)."""
     xyz = expon_lr(
         step,
-        opt.position_lr_init * spatial_scale,
-        opt.position_lr_final * spatial_scale,
+        opt.position_lr_init * spatial_scale * xyz_lr_mult,
+        opt.position_lr_final * spatial_scale * xyz_lr_mult,
         lr_delay_mult=opt.position_lr_delay_mult,
         max_steps=opt.position_lr_max_steps,
     )
@@ -104,3 +110,38 @@ def adam_step(field, grads: dict, state: dict, lrs: FieldLRs,
         v.mul_(b2).add_((1 - b2) * (g * g))
         p.sub_(lr * (m / c1) / (torch.sqrt(v / c2) + eps))
     state["count"] = count
+
+
+@dataclasses.dataclass
+class TensorAdamState:
+    """Adam moments of a dict of tensors, and the step count (an int32
+    tensor on the CPU, so the bias corrections need no read from the card)."""
+
+    mu: dict
+    nu: dict
+    count: torch.Tensor
+
+
+def tensor_adam_init(params: dict) -> TensorAdamState:
+    return TensorAdamState(
+        mu={k: torch.zeros_like(v) for k, v in params.items()},
+        nu={k: torch.zeros_like(v) for k, v in params.items()},
+        count=torch.zeros((), dtype=torch.int32))
+
+
+@torch.no_grad()
+def tensor_adam_step(params: dict, grads: dict, state: TensorAdamState, lr,
+                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """One Adam update -> (new params dict, new TensorAdamState); the
+    inputs are left as they were. Bias corrections in float32, as the JAX
+    package computes them."""
+    count = state.count + 1
+    c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+    c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+    new_p, mu, nu = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k]
+        mu[k] = b1 * state.mu[k] + (1 - b1) * g
+        nu[k] = b2 * state.nu[k] + (1 - b2) * g * g
+        new_p[k] = p - lr * (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
+    return new_p, TensorAdamState(mu=mu, nu=nu, count=count)

@@ -1,12 +1,14 @@
-"""Scene: cameras + the trained static Gaussian field
-(port of vegs_tpu/scene/__init__.py, subset).
+"""Scene: cameras + the static Gaussian field + one canonical-space field
+per dynamic instance (port of vegs_tpu/scene/__init__.py; the dataset
+loaders wait for a later slice).
 
 Weights-only PLY snapshots in the reference's attribute layout: a PLY
 written by the JAX package's `save_gaussian_ply` loads here unchanged, and
 the other way round. A Scene is built from a given SceneInfo, with the
-static field of a trained iteration or seeded from the SceneInfo's point
-cloud (`create_from_points`); the dataset loaders and the dynamic box
-fields wait for later slices.
+fields of a trained iteration (`save` writes them: the static PLY and one
+per instance), or seeded: the static field from the SceneInfo's point
+cloud (`create_from_points`), each box field from its instance's points
+mapped into the canonical box (`initialize_box_field`).
 """
 
 from __future__ import annotations
@@ -69,11 +71,69 @@ def load_gaussian_ply(path, capacity: Optional[int] = None,
                                      device=resolve_device(device))
 
 
+def initialize_box_field(
+    dyn_pcd,
+    instance_id: int,
+    bboxes: dict,
+    init_opacity: float = 0.1,
+    fallback_points: int = 8196,
+    rng: Optional[np.random.Generator] = None,
+    device=None,
+) -> GaussianField:
+    """Canonical-space Gaussian field of one dynamic instance.
+
+    Maps each frame's points of the instance into the canonical box with
+    world2box = inv(box2world) and keeps those inside |c| <= 0.5 + 1e-3;
+    with 16 points or fewer (an untracked instance) it takes
+    `fallback_points` uniform points in [-0.5, 0.5]^3 from `rng` (default:
+    seed 0) instead. The squared knn distance is clamped to [1e-7, 1e-4].
+    `bboxes` is {frame: {instance: box2world [4, 4] (or a record with a
+    `box2world`)}}."""
+    rng = rng or np.random.default_rng(0)
+    pts_all, col_all = [], []
+    if dyn_pcd is not None:
+        sel = np.asarray(dyn_pcd.instances) == instance_id
+        pts = np.asarray(dyn_pcd.points)[sel]
+        cols = np.asarray(dyn_pcd.colors)[sel]
+        ts = np.asarray(dyn_pcd.timestamps)[sel]
+        for frame, inst_boxes in bboxes.items():
+            if instance_id not in inst_boxes:
+                continue
+            frame_sel = ts == frame
+            if not frame_sel.any():
+                continue
+            world2box = np.linalg.inv(box_matrix(inst_boxes[instance_id]))
+            p = pts[frame_sel]
+            canon = (np.concatenate([p, np.ones((len(p), 1))], 1)
+                     @ world2box.T)[:, :3]
+            inside = np.all(np.abs(canon) <= 0.5 + 1e-3, axis=1)
+            pts_all.append(canon[inside])
+            col_all.append(cols[frame_sel][inside])
+    if pts_all and sum(len(p) for p in pts_all) > 16:
+        points = np.concatenate(pts_all, 0)
+        colors = np.concatenate(col_all, 0)
+    else:
+        points = rng.uniform(-0.5, 0.5, (fallback_points, 3)).astype(np.float32)
+        colors = np.full((fallback_points, 3), 0.5, np.float32)
+    return gaussians.create_from_points(
+        points, colors, init_opacity=init_opacity, scale_clip=(1e-7, 1e-4),
+        device=resolve_device(device))
+
+
+def box_matrix(box) -> np.ndarray:
+    """The [4, 4] box-to-world matrix of an annotation: the array itself,
+    or a record's `box2world`."""
+    return np.asarray(box.box2world if hasattr(box, "box2world") else box)
+
+
 class Scene:
-    """Cameras of a SceneInfo + the static field: that of a trained
-    iteration (`model_path/point_cloud/iteration_<i>/point_cloud.ply`; -1 =
-    latest), or with `load_iteration=None` one seeded from the SceneInfo's
-    point cloud."""
+    """Cameras of a SceneInfo, the static field and the box fields
+    (`box_gaussians`, {instance: GaussianField}): those of a trained
+    iteration (`model_path/point_cloud/iteration_<i>/point_cloud.ply` and
+    `model_path/instance_<id>/point_cloud/iteration_<i>/point_cloud.ply`;
+    -1 = latest), or with `load_iteration=None` seeded from the SceneInfo's
+    point clouds (box fields at `initialize_box_field`'s opacity 0.1, the
+    default of `config.BoxModelParams.gaussian_box_model_init_opacity`)."""
 
     def __init__(
         self,
@@ -85,9 +145,6 @@ class Scene:
         resolution: int = -1,
         device=None,
     ):
-        if scene_info.instances_info:
-            raise NotImplementedError(
-                "dynamic box instances are not ported yet")
         self.model_path = str(model_path)
         self.device = resolve_device(device)
         self.scene_info = scene_info
@@ -104,17 +161,34 @@ class Scene:
         ]
         self.train_bboxes = scene_info.train_bboxes
         self.test_bboxes = scene_info.test_bboxes
+        self.instances_info = list(scene_info.instances_info)
         self.loaded_iter = None
         if load_iteration is None:
             pcd = scene_info.point_cloud
             self.gaussians = gaussians.create_from_points(
                 pcd.points, pcd.colors, device=self.device)
+            # every frame's annotations, train and test (a new dict: the
+            # train split's records are left as they are)
+            all_bboxes = {f: dict(d) for f, d in self.train_bboxes.items()}
+            for f, d in self.test_bboxes.items():
+                all_bboxes.setdefault(f, {}).update(d)
+            self.box_gaussians = {
+                inst: initialize_box_field(
+                    scene_info.dyn_point_cloud, inst, all_bboxes,
+                    device=self.device)
+                for inst in self.instances_info}
         else:
             self.loaded_iter = self._resolve_iteration(load_iteration)
             self.gaussians = load_gaussian_ply(
                 Path(self.model_path) / "point_cloud"
                 / f"iteration_{self.loaded_iter}" / "point_cloud.ply",
                 device=self.device)
+            self.box_gaussians = {}
+            for inst in self.instances_info:
+                p = self._instance_ply(inst, self.loaded_iter)
+                if p.exists():
+                    self.box_gaussians[inst] = load_gaussian_ply(
+                        p, device=self.device)
 
     def _resolve_iteration(self, load_iteration: int) -> int:
         if load_iteration != -1:
@@ -124,6 +198,18 @@ class Scene:
         if not iters:
             raise FileNotFoundError(f"no trained iteration under {pc_dir}")
         return max(iters)
+
+    def _instance_ply(self, inst, iteration: int) -> Path:
+        return (Path(self.model_path) / f"instance_{inst}" / "point_cloud"
+                / f"iteration_{iteration}" / "point_cloud.ply")
+
+    def save(self, iteration: int) -> None:
+        """Write the static field's PLY and one PLY per box instance."""
+        save_gaussian_ply(Path(self.model_path) / "point_cloud"
+                          / f"iteration_{iteration}" / "point_cloud.ply",
+                          self.gaussians)
+        for inst, field in self.box_gaussians.items():
+            save_gaussian_ply(self._instance_ply(inst, iteration), field)
 
     def getTrainCameras(self) -> list[Camera]:
         return self.train_cameras

@@ -1,9 +1,10 @@
 """Scene/dataset records (port of vegs_tpu/scene/dataset_readers.py, subset).
 
-The CameraInfo/SceneInfo containers, the FoV helpers, the nerf++
-normalization, `camera_from_info` and the random virtual rig
-(`generateRandomCameras`). The KITTI-360, KITTI, COLMAP and Blender
-loaders wait for a later slice.
+The point cloud records (static, and the dynamic instances' points with
+their instance id and frame), the CameraInfo/SceneInfo containers, the FoV
+helpers, the nerf++ normalization, `camera_from_info` and the random
+virtual rig (`generateRandomCameras`). The KITTI-360, KITTI, COLMAP and
+Blender loaders wait for a later slice.
 """
 
 from __future__ import annotations
@@ -22,6 +23,16 @@ class BasicPointCloud(NamedTuple):
     points: np.ndarray
     colors: np.ndarray
     normals: Optional[np.ndarray] = None
+
+
+class DynamicPointCloud(NamedTuple):
+    """Points of the dynamic instances in WORLD space, each with its
+    instance id and the frame it was captured in."""
+
+    points: np.ndarray
+    colors: np.ndarray
+    instances: np.ndarray
+    timestamps: np.ndarray
 
 
 class CameraInfo(NamedTuple):
@@ -49,7 +60,7 @@ class SceneInfo:
     test_cameras: list
     nerf_normalization: dict
     ply_path: str
-    dyn_point_cloud: Optional[object] = None
+    dyn_point_cloud: Optional[DynamicPointCloud] = None
     train_bboxes: dict = field(default_factory=dict)
     test_bboxes: dict = field(default_factory=dict)
     instances_info: list = field(default_factory=list)

@@ -62,6 +62,38 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return result
 
 
+def sh_basis(degree: int, dirs: torch.Tensor) -> torch.Tensor:
+    """SH basis values at unit directions: [..., 3] -> [..., (degree+1)**2];
+    eval_sh(deg, sh, d) == einsum('...ck,...k->...c', sh, sh_basis(deg, d))."""
+    if not 0 <= degree <= MAX_SH_DEGREE:
+        raise ValueError(f"SH degree {degree} outside [0, {MAX_SH_DEGREE}]")
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    basis = [C0 * torch.ones_like(x)]
+    if degree >= 1:
+        basis += [-C1 * y, C1 * z, -C1 * x]
+        if degree >= 2:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            basis += [
+                C2[0] * xy,
+                C2[1] * yz,
+                C2[2] * (2.0 * zz - xx - yy),
+                C2[3] * xz,
+                C2[4] * (xx - yy),
+            ]
+            if degree >= 3:
+                basis += [
+                    C3[0] * y * (3 * xx - yy),
+                    C3[1] * xy * z,
+                    C3[2] * y * (4 * zz - xx - yy),
+                    C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+                    C3[4] * x * (4 * zz - xx - yy),
+                    C3[5] * z * (xx - yy),
+                    C3[6] * x * (xx - 3 * yy),
+                ]
+    return torch.stack(basis, dim=-1)
+
+
 def rgb_to_sh(rgb):
     """Colors in [0,1] -> DC SH coefficient."""
     return (rgb - 0.5) / C0

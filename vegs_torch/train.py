@@ -1,16 +1,29 @@
-"""Training loop, static scenes (port of the static path of
-vegs_tpu/train.py).
+"""Training loop for static and dynamic scenes (port of vegs_tpu/train.py).
 
-One step: render the field through the rasterizer with a zero means2d tap
-(`render._run`), score (1 - lambda) L1 + lambda (1 - SSIM) plus the
-normal-guidance term, backpropagate with PyTorch autograd (kernels K2 and K3
-inside the blend's and the gather's backward), take the Adam step
-(`optim.adam_step`, in place) and fold the tap's gradient into the densify
-statistics. Between steps the host adapts the tile-instance capacities and
-densifies, prunes and resets opacity on the reference's schedule.
+One step: render the static field, and the box fields of the frame's
+dynamic instances moved to the world by their annotated box-to-world
+transforms and learnable residuals (`boxmodel.BoxDeltas`), in one
+rasterizer call with a zero means2d tap (`render._run`); score
+(1 - lambda) L1 + lambda (1 - SSIM) plus the normal-guidance term and the
+deltas' pull toward identity; backpropagate with PyTorch autograd (kernels
+K2 and K3 inside the blend's and the gather's backward); take the Adam
+steps in place (the static field at the scene's extent, each box field at
+spatial scale 1 with `box_lr_mult` on its means, each (frame, instance)
+residual with `tensor_adam_step`) and fold the tap's gradient into each
+part's densify statistics. Between steps the host adapts the tile-instance
+capacities and densifies, prunes and resets opacity on the reference's
+schedule: the static field until `densify_until_iter`, the box fields,
+with half the grad threshold and screen size, until
+`densify_until_iter_box`.
 
-Not ported yet: dynamic boxes and the pooled step, diffusion guidance and
-the perceptual term, data parallelism, checkpoints, the CLI (`main`).
+Each box instance keeps its own field, Adam state and statistics, and only
+the frame's instances are stepped: the JAX package's pooled stack of
+padded slots (for one jitted shape and a donated device buffer) serves
+JAX's compilation, not the contract. `Trainer.init_from_normals` is the normal-prior
+covariance init a run takes before its first step.
+
+Not ported yet: diffusion guidance and the perceptual term, data
+parallelism, checkpoints, the CLI (`main`).
 """
 
 from __future__ import annotations
@@ -22,14 +35,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import densify, optim, resolve_device
+from . import boxmodel, densify, optim, resolve_device
+from .boxmodel import BoxDeltas
 from .config import VegsConfig
 from .gaussians import DensifyStats, GaussianField
 from .losses import l1_loss, loss_normal_guidance, psnr, ssim
 from .ops.projection import CameraParams
 from .ops.rasterize import RasterizeConfig, RasterOut
-from .render import field_arrays, _run
-from .scene import Scene
+from .render import (BoxInstance, _bounds, _box_arrays, _concat_arrays, _run,
+                     field_arrays, render_all)
+from .scene import Scene, box_matrix
 
 
 @dataclasses.dataclass
@@ -54,60 +69,124 @@ def image_loss(out: RasterOut, gt, normal, normal_valid, opt_cfg):
 
 def loss_fn(field: GaussianField, m2d_offset, cam: CameraParams, gt, normal,
             normal_valid, active_sh_degree: int, bg, *, opt_cfg,
-            raster_cfg: RasterizeConfig, sh_total_degree: int = 3):
-    """The static step's loss (`image_loss`) of the field rendered with the
-    means2d tap `m2d_offset` ([C, 2], zeros). Returns (loss, l1,
-    normal_loss, RasterOut)."""
-    out = _run(cam, field_arrays(field, active_sh_degree), bg=bg,
-               scale_modifier=1.0, override_color=None,
-               sh_degree=sh_total_degree, config=raster_cfg,
-               means2d_offset=m2d_offset)
-    return (*image_loss(out, gt, normal, normal_valid, opt_cfg), out)
+            raster_cfg: RasterizeConfig, sh_total_degree: int = 3,
+            boxes=(), lambda_reg: float = 0.0):
+    """The step's loss of the field and the `boxes` (`render.BoxInstance`s
+    with deltas) rendered together with the means2d tap `m2d_offset` ([C,
+    2] zeros, C the rows of all parts): `image_loss`, plus `lambda_reg` times
+    the deltas' pull toward identity when there are boxes. Returns (loss,
+    l1, normal_loss, RasterOut)."""
+    parts = [field_arrays(field, active_sh_degree)]
+    parts += [_box_arrays(b, active_sh_degree) for b in boxes]
+    out = _run(cam, _concat_arrays(parts), bg=bg, scale_modifier=1.0,
+               override_color=None, sh_degree=sh_total_degree,
+               config=raster_cfg, means2d_offset=m2d_offset)
+    loss, ll1, nloss = image_loss(out, gt, normal, normal_valid, opt_cfg)
+    if boxes:
+        # safe norms: at the identity init the plain norm's gradient is NaN,
+        # and the NaN guard would then freeze the deltas (boxmodel.safe_norm)
+        reg = torch.stack([boxmodel.regularize_loss(b.deltas)
+                           for b in boxes]).sum()
+        loss = loss + lambda_reg * reg
+    return loss, ll1, nloss, out
+
+
+@dataclasses.dataclass
+class BoxStep:
+    """One box instance's state in a step: its field and Adam state
+    (updated in place), its densify statistics, its box-to-world transform
+    in this frame, and this (frame, instance)'s residual with its Adam."""
+
+    field: GaussianField
+    opt: dict
+    stats: DensifyStats
+    box2world: torch.Tensor   # [4, 4]
+    deltas: BoxDeltas
+    delta_opt: optim.TensorAdamState
 
 
 def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
                active_sh_degree: int, bg, *, opt_cfg, raster_cfg: RasterizeConfig,
-               spatial_scale: float, sh_total_degree: int = 3):
-    """One static step -> (state, metrics). The field's parameters, the Adam
-    moments and the stats are updated in place; metrics are 0-d tensors on
-    the field's device."""
+               spatial_scale: float, sh_total_degree: int = 3, boxes=(),
+               box_cfg=None):
+    """One step -> (state, metrics, boxes). The fields' parameters and Adam
+    moments are updated in place; each `BoxStep` of `boxes` comes back with
+    new statistics, deltas and delta Adam state (`box_cfg`: boxmodel_lr and
+    boxmodel_lambda_reg). Metrics are 0-d tensors on the field's device."""
     field = state.field
-    for p in field.parameters():
-        p.grad = None
-    m2d_offset = torch.zeros((field.capacity, 2), dtype=torch.float32,
+    fields = [field] + [b.field for b in boxes]
+    for f in fields:
+        for p in f.parameters():
+            p.grad = None
+    deltas = [BoxDeltas(**{k: v.detach().clone().requires_grad_(True)
+                           for k, v in b.deltas.as_dict().items()})
+              for b in boxes]
+    insts = [BoxInstance(b.field, b.box2world, d)
+             for b, d in zip(boxes, deltas)]
+    bounds = _bounds([f.capacity for f in fields])
+    m2d_offset = torch.zeros((bounds[-1], 2), dtype=torch.float32,
                              device=field.means.device, requires_grad=True)
     loss, ll1, nloss, out = loss_fn(
         field, m2d_offset, cam, gt, normal, normal_valid, active_sh_degree,
         bg, opt_cfg=opt_cfg, raster_cfg=raster_cfg,
-        sh_total_degree=sh_total_degree)
+        sh_total_degree=sh_total_degree, boxes=insts,
+        lambda_reg=box_cfg.boxmodel_lambda_reg if boxes else 0.0)
     loss.backward()
 
-    grads = {k: getattr(field, k).grad for k in optim.PARAM_LEAVES}
-    grads = {k: torch.zeros_like(getattr(field, k)) if g is None else g
-             for k, g in grads.items()}
-    optim.adam_step(field, grads, state.opt,
+    def grads_of(f):
+        return {k: torch.zeros_like(getattr(f, k)) if getattr(f, k).grad is None
+                else getattr(f, k).grad for k in optim.PARAM_LEAVES}
+
+    optim.adam_step(field, grads_of(field), state.opt,
                     optim.field_lrs(opt_cfg, spatial_scale, state.step))
     g_m2d = (m2d_offset.grad if m2d_offset.grad is not None
              else torch.zeros_like(m2d_offset))
-    stats = densify.apply_stats(state.stats, *densify.stats_contribution(
-        g_m2d, out.radii, cam.height, cam.width))
+    # one view's contributions for every part at once (they are row-wise),
+    # then each part's rows
+    norm, vis, rad = densify.stats_contribution(g_m2d, out.radii, cam.height,
+                                                cam.width)
+
+    def part(i):
+        a, b = bounds[i], bounds[i + 1]
+        return norm[a:b], vis[a:b], rad[a:b]
+
+    stats = densify.apply_stats(state.stats, *part(0))
+    new_boxes = []
+    if boxes:
+        # box fields live in the unit canonical box: spatial scale 1, the
+        # means' rate times box_lr_mult, the static step counter
+        box_lrs = optim.field_lrs(opt_cfg, 1.0, state.step,
+                                  xyz_lr_mult=opt_cfg.box_lr_mult)
+        for i, (b, d) in enumerate(zip(boxes, deltas), start=1):
+            optim.adam_step(b.field, grads_of(b.field), b.opt, box_lrs)
+            g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # the NaN guard
+                   for k, v in d.as_dict().items()}
+            nd, nopt = optim.tensor_adam_step(
+                {k: v.detach() for k, v in d.as_dict().items()}, g_d,
+                b.delta_opt, box_cfg.boxmodel_lr)
+            new_boxes.append(dataclasses.replace(
+                b, stats=densify.apply_stats(b.stats, *part(i)),
+                deltas=BoxDeltas(**nd), delta_opt=nopt))
     metrics = {
         "loss": loss.detach(), "l1": ll1.detach(),
         "normal_loss": nloss.detach(), "num_dropped": out.num_dropped,
         "num_needed": out.num_needed, "num_needed_raw": out.num_needed_raw,
     }
-    return TrainState(field=field, opt=state.opt, stats=stats,
-                      step=state.step + 1), metrics
+    return (TrainState(field=field, opt=state.opt, stats=stats,
+                       step=state.step + 1), metrics, new_boxes)
 
 
 @dataclasses.dataclass
 class Trainer:
-    """Host-side training of one static scene, on `device` (default: the
-    card; the scene's field must live there)."""
+    """Host-side training of one scene, its static field and its box
+    fields, on `device` (default: the card; the scene's fields must live
+    there). A step renders at most `max_box_slots` of the frame's
+    instances."""
 
     cfg: VegsConfig
     scene: Scene
     raster_cfg: RasterizeConfig = None
+    max_box_slots: int = 8
     rng_seed: int = 7
     device: object = None
 
@@ -140,6 +219,21 @@ class Trainer:
         self.state = TrainState(
             field=f, opt=optim.adam_init(f),
             stats=DensifyStats.zeros(f.capacity, self.device), step=0)
+
+        # dynamic objects: a field, Adam state and statistics per instance;
+        # a residual and its Adam per (frame, instance), made when first seen
+        self.instances = list(self.scene.box_gaussians.keys())
+        self.box_fields = dict(self.scene.box_gaussians)
+        for k, bf in self.box_fields.items():
+            if bf.means.device.type != self.device.type:
+                raise ValueError(f"box field {k} lies on {bf.means.device}, "
+                                 f"the trainer runs on {self.device}")
+        self.box_opts = {k: optim.adam_init(v)
+                         for k, v in self.box_fields.items()}
+        self.box_stats = {k: DensifyStats.zeros(v.capacity, self.device)
+                          for k, v in self.box_fields.items()}
+        self.frame_deltas: dict = {}      # (frame, inst) -> BoxDeltas
+        self.frame_delta_opts: dict = {}  # (frame, inst) -> TensorAdamState
         self.viewpoint_stack = []
         self.metrics_log = []
 
@@ -153,6 +247,26 @@ class Trainer:
     def _active_sh_degree(self, it: int) -> int:
         # SH warm-up: one band every 1000 iterations
         return min(it // 1000, self.cfg.model.sh_degree)
+
+    def _frame_boxes(self, frame: int) -> dict:
+        return self.scene.train_bboxes.get(int(frame), {})
+
+    def init_from_normals(self, cameras=None) -> int:
+        """The normal-prior covariance init a run takes before its first
+        step: every camera of `cameras` (default: the training cameras)
+        that has a normal map votes for the rotations of the static
+        Gaussians it sees, which then get flattened scales
+        (`priors.norminit`). Returns the number of Gaussians initialized."""
+        from .priors import norminit
+
+        cams = cameras if cameras is not None else self.scene.getTrainCameras()
+        cams = [c for c in cams if c.normal_path or c.normal is not None]
+        if not cams:
+            return 0
+        field = self.state.field
+        acc = norminit.accumulate_cameras(field, cams)
+        norminit.finalize_normal_init(field, acc)
+        return int((acc.count > 0).sum())
 
     def _adapt_k_cap(self, num_dropped: float, num_needed: float = 0.0,
                      num_needed_raw: float = 0.0) -> None:
@@ -190,6 +304,31 @@ class Trainer:
             self._kpad_low_streak = 0
 
     # -- one iteration ------------------------------------------------------
+    def _box_steps(self, frame: int) -> tuple[list, list]:
+        """(instances, `BoxStep`s) of the frame's instances that have a
+        field, at most max_box_slots, with every box-to-world matrix sent to
+        the device in one copy."""
+        boxes = self._frame_boxes(frame)
+        insts = [i for i in boxes if i in self.box_fields][: self.max_box_slots]
+        if not insts:
+            return [], []
+        b2w = torch.from_numpy(np.stack(
+            [box_matrix(boxes[i]) for i in insts]).astype(np.float32)
+        ).to(self.device)
+        steps = []
+        for j, inst in enumerate(insts):
+            key = (frame, inst)
+            if key not in self.frame_deltas:
+                self.frame_deltas[key] = BoxDeltas.identity(device=self.device)
+                self.frame_delta_opts[key] = optim.tensor_adam_init(
+                    self.frame_deltas[key].as_dict())
+            steps.append(BoxStep(
+                field=self.box_fields[inst], opt=self.box_opts[inst],
+                stats=self.box_stats[inst], box2world=b2w[j],
+                deltas=self.frame_deltas[key],
+                delta_opt=self.frame_delta_opts[key]))
+        return insts, steps
+
     def train_iteration(self, it: int, camera=None) -> dict:
         cam = camera if camera is not None else self._next_camera()
         gt = torch.from_numpy(
@@ -198,12 +337,19 @@ class Trainer:
         normal = (torch.from_numpy(np.asarray(wn, np.float32)).to(self.device)
                   if wn is not None else torch.zeros_like(gt))
         normal_valid = 0.0 if wn is None else 1.0
-        self.state, metrics = train_step(
+        frame = int(getattr(cam, "frame", 0))
+        insts, box_steps = self._box_steps(frame)
+        self.state, metrics, stepped = train_step(
             self.state, cam.device_params(self.device), gt, normal,
             normal_valid, self._active_sh_degree(it), self.bg,
             opt_cfg=self.cfg.opt, raster_cfg=self.raster_cfg,
             spatial_scale=self.spatial_scale,
-            sh_total_degree=self.cfg.model.sh_degree)
+            sh_total_degree=self.cfg.model.sh_degree,
+            boxes=box_steps, box_cfg=self.cfg.box)
+        for inst, b in zip(insts, stepped):
+            self.box_stats[inst] = b.stats
+            self.frame_deltas[(frame, inst)] = b.deltas
+            self.frame_delta_opts[(frame, inst)] = b.delta_opt
         metrics = {k: float(v) for k, v in metrics.items()}
         self._adapt_k_cap(metrics["num_dropped"], metrics["num_needed"],
                           metrics["num_needed_raw"])
@@ -211,34 +357,51 @@ class Trainer:
         return metrics
 
     def _densify_and_reset(self, it: int) -> None:
+        """Densify and prune, and reset opacities, on the reference's
+        schedule: the static field while it <= densify_until_iter; every
+        box field while it <= densify_until_iter_box, with half the grad
+        threshold and half the screen size, at the same extent."""
         o = self.cfg.opt
         max_screen = 20 if it > o.opacity_reset_interval else 0
         densify_now = (it % o.densification_interval == 0
                        and it > o.densify_from_iter)
         reset_now = (it % o.opacity_reset_interval == 0 and it > 0) or (
             self.cfg.model.white_background and it == o.densify_from_iter)
-        if it > o.densify_until_iter:
-            return
-        st = self.state
-        if densify_now:
-            f, opt, stats, _ = densify.densify_and_prune(
-                st.field, st.opt, st.stats, self.generator,
-                grad_threshold=o.densify_grad_threshold,
-                percent_dense=o.percent_dense, extent=self.spatial_scale,
-                max_screen_size=max_screen)
-            self.state = TrainState(field=f, opt=opt, stats=stats, step=st.step)
-            self.scene.gaussians = f
-        if reset_now:
-            f, opt = densify.reset_opacity(self.state.field, self.state.opt)
-            self.state = TrainState(field=f, opt=opt, stats=self.state.stats,
-                                    step=self.state.step)
+        parts = []  # (instance or None for the static field, threshold, screen)
+        if it <= o.densify_until_iter:
+            parts.append((None, o.densify_grad_threshold, max_screen))
+        if it <= o.densify_until_iter_box:
+            parts += [(inst, o.densify_grad_threshold * 0.5, max_screen // 2)
+                      for inst in self.box_fields]
+        for inst, threshold, screen in parts:
+            if inst is None:
+                f, opt, stats = self.state.field, self.state.opt, self.state.stats
+            else:
+                f, opt = self.box_fields[inst], self.box_opts[inst]
+                stats = self.box_stats[inst]
+            if densify_now:
+                f, opt, stats, _ = densify.densify_and_prune(
+                    f, opt, stats, self.generator, grad_threshold=threshold,
+                    percent_dense=o.percent_dense, extent=self.spatial_scale,
+                    max_screen_size=screen)
+            if reset_now:
+                f, opt = densify.reset_opacity(f, opt)
+            if inst is None:
+                self.state = TrainState(field=f, opt=opt, stats=stats,
+                                        step=self.state.step)
+                self.scene.gaussians = f
+            else:
+                self.box_fields[inst], self.box_opts[inst] = f, opt
+                self.box_stats[inst] = stats
 
     # -- evaluation ---------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, cameras=None, max_cams: Optional[int] = None,
-                 with_ssim: bool = False) -> dict:
-        """PSNR/L1 (and SSIM) of the static field over `cameras` (default:
-        the held-out split)."""
+                 with_boxes: bool = False, with_ssim: bool = False) -> dict:
+        """PSNR/L1 (and SSIM) over `cameras` (default: the held-out split).
+        With `with_boxes=True` each frame's dynamic instances (train and
+        test annotations), with their learned residuals, are composited
+        into the render (`render_all`)."""
         cams = cameras if cameras is not None else self.scene.getTestCameras()
         if max_cams is not None:
             cams = cams[:max_cams]
@@ -246,12 +409,29 @@ class Trainer:
             return {}
         deg = self.cfg.model.sh_degree
         cfg = self.raster_cfg._replace(forward_only=True)
+        box_fields = self.box_fields if with_boxes else {}
         psnrs, l1s, ssims = [], [], []
         for cam in cams:
-            out = _run(cam.device_params(self.device),
-                       field_arrays(self.state.field, deg), bg=self.bg,
-                       scale_modifier=1.0, override_color=None, sh_degree=deg,
-                       config=cfg, means2d_offset=None)
+            frame = int(getattr(cam, "frame", 0))
+            boxes = {}
+            if with_boxes:
+                boxes = dict(self.scene.train_bboxes.get(frame, {}))
+                boxes.update(self.scene.test_bboxes.get(frame, {}))
+            insts = [BoxInstance(
+                field=box_fields[i],
+                box2world=torch.from_numpy(
+                    box_matrix(m).astype(np.float32)).to(self.device),
+                deltas=self.frame_deltas.get((frame, i)))
+                for i, m in boxes.items() if i in box_fields]
+            cam_p = cam.device_params(self.device)
+            if insts:
+                out, _ = render_all(cam_p, self.state.field, insts, bg=self.bg,
+                                    active_sh_degree=deg, sh_degree=deg,
+                                    config=cfg)
+            else:
+                out = _run(cam_p, field_arrays(self.state.field, deg),
+                           bg=self.bg, scale_modifier=1.0, override_color=None,
+                           sh_degree=deg, config=cfg, means2d_offset=None)
             gt = torch.from_numpy(
                 np.asarray(cam.original_image, np.float32)).to(self.device)
             rgb = torch.clamp(out.rgb, 0.0, 1.0)

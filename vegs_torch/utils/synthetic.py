@@ -1,7 +1,13 @@
-"""Synthetic street camera rigs (numpy copy of the camera arc of
-vegs_tpu/utils/synthetic.py) and a synthetic normal map. The ray-traced
-ground truth of that module is not ported: the records carry no images, and
-callers render their own ground truth."""
+"""Synthetic street scenes (numpy copy of vegs_tpu/utils/synthetic.py): a
+camera arc, a seeded point sampling of the scene, a tiny ray tracer for
+ground-truth images and normal maps, the moving "vehicle" box of the
+dynamic-object oracle, and a smooth synthetic normal map.
+
+The ray tracer shares no code or representation with the Gaussian
+rasterizer: a checkerboard ground plane, lambertian boxes and a sky
+gradient, so a PSNR against its images cannot be gamed by the model
+reproducing itself.
+"""
 
 from __future__ import annotations
 
@@ -9,13 +15,234 @@ import numpy as np
 
 from ..scene.dataset_readers import CameraInfo, fov2focal
 
+SUN = np.array([0.45, 0.8, 0.35])
+SKY_TOP = np.array([0.45, 0.62, 0.90])
+SKY_BOT = np.array([0.80, 0.86, 0.95])
+CHECKER_A = np.array([0.72, 0.70, 0.68])
+CHECKER_B = np.array([0.35, 0.34, 0.33])
+
+# (center xz, size xyz, albedo) — "buildings"/"vehicles" along a street
+BOXES = [
+    ((-3.0, 0.0, 8.0), (2.0, 3.0, 2.0), (0.75, 0.30, 0.25)),
+    ((3.2, 0.0, 11.0), (2.4, 4.0, 2.4), (0.30, 0.45, 0.75)),
+    ((-2.2, 0.0, 15.0), (2.0, 2.2, 3.0), (0.35, 0.65, 0.35)),
+    ((0.8, 0.0, 6.0), (1.2, 1.0, 1.6), (0.78, 0.72, 0.30)),
+]
+
+
+def _sun():
+    return SUN / np.linalg.norm(SUN)
+
+
+def _shade(albedo, normal):
+    lam = np.clip(normal @ _sun(), 0.0, 1.0)
+    return albedo * np.expand_dims(0.35 + 0.65 * lam, -1) \
+        if np.ndim(lam) else albedo * (0.35 + 0.65 * lam)
+
+
+def _box_bounds(box):
+    (cx, cy, cz), (sx, sy, sz), _ = box
+    lo = np.array([cx - sx / 2, cy, cz - sz / 2])
+    hi = np.array([cx + sx / 2, cy + sy, cz + sz / 2])
+    return lo, hi
+
+
+def raytrace(R: np.ndarray, t: np.ndarray, H: int, W: int,
+             fovx: float, fovy: float, extra_boxes=(),
+             return_normal: bool = False):
+    """Render [3, H, W] in [0,1]. `R`/`t` follow the repo's camera
+    convention (R = transposed world-to-camera rotation, t = w2c
+    translation), as `Camera` takes them.
+
+    `extra_boxes` appends per-frame boxes (same (center_xz, size, albedo)
+    tuples as BOXES) — the moving "vehicle" of the dynamic-object oracle.
+    `return_normal=True` additionally returns a CAMERA-space per-pixel
+    normal map [3, H, W] (the synthetic stand-in for the omnidata prior;
+    Camera.world_normal() rotates it back to world). Sky pixels get the
+    world up normal, like a monocular estimator would hallucinate."""
+    # camera center and axes in world space
+    Rwc = R.T                       # world->cam rotation
+    C = -Rwc.T @ t                  # camera center
+    # pixel ray directions in camera space
+    xs = (np.arange(W) + 0.5) / W * 2 - 1
+    ys = (np.arange(H) + 0.5) / H * 2 - 1
+    dx = xs * np.tan(fovx / 2)
+    dy = ys * np.tan(fovy / 2)
+    dirs_cam = np.stack(
+        [np.broadcast_to(dx[None, :], (H, W)),
+         np.broadcast_to(dy[:, None], (H, W)),
+         np.ones((H, W))], axis=-1)
+    dirs = dirs_cam @ Rwc           # rotate to world (row-vector form)
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+
+    tmin = np.full((H, W), np.inf)
+    color = np.zeros((H, W, 3))
+    # world-space per-pixel normal (y is DOWN: up = -y); sky defaults to up
+    nmap = np.broadcast_to(
+        np.array([0.0, -1.0, 0.0]), (H, W, 3)).copy()
+    # sky background
+    up = np.clip(dirs[..., 1], -1, 1)
+    sky_t = np.clip(-up, 0.0, 1.0) ** 0.7
+    color[:] = SKY_BOT[None, None] * (1 - sky_t[..., None]) \
+        + SKY_TOP[None, None] * sky_t[..., None]
+
+    # ground plane at world y = 1.5 (y points DOWN: the plane lies 1.5
+    # below the cameras' height)
+    plane_y = 1.5
+    denom = dirs[..., 1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_pl = (plane_y - C[1]) / denom
+    hit = (t_pl > 0.1) & (np.abs(denom) > 1e-6)
+    p = C[None, None] + dirs * t_pl[..., None]
+    checker = ((np.floor(p[..., 0]) + np.floor(p[..., 2])) % 2) == 0
+    base = np.where(checker[..., None], CHECKER_A, CHECKER_B)
+    fog = np.clip(t_pl / 60.0, 0, 1)[..., None]
+    ground_col = _shade(base, np.array([0, -1.0, 0]))
+    ground_col = ground_col * (1 - fog) + color * fog
+    sel = hit & (t_pl < tmin)
+    tmin = np.where(sel, t_pl, tmin)
+    color = np.where(sel[..., None], ground_col, color)
+    # ground normal already equals the sky default ([0,-1,0])
+
+    # boxes (AABB slab test); box "ground" sits at plane_y going UP (−y)
+    for box in list(BOXES) + list(extra_boxes):
+        lo, hi = _box_bounds(box)
+        lo = lo.copy(); hi = hi.copy()
+        # convert box heights to this convention: base at plane_y, top above
+        base_y = plane_y
+        height = hi[1] - lo[1]
+        lo[1], hi[1] = base_y - height, base_y
+        albedo = np.array(box[2])
+        inv = 1.0 / np.where(np.abs(dirs) < 1e-9, 1e-9, dirs)
+        t0 = (lo[None, None] - C[None, None]) * inv
+        t1 = (hi[None, None] - C[None, None]) * inv
+        tn = np.minimum(t0, t1).max(axis=-1)
+        tf = np.maximum(t0, t1).min(axis=-1)
+        hit = (tn < tf) & (tf > 0.1) & (tn > 0.1)
+        # face normal: axis of the entering slab
+        enter = np.minimum(t0, t1)
+        axis = np.argmax(enter, axis=-1)
+        sign = -np.sign(np.take_along_axis(dirs, axis[..., None], -1))[..., 0]
+        normal = np.zeros((H, W, 3))
+        np.put_along_axis(normal, axis[..., None], sign[..., None], -1)
+        col = _shade(albedo[None, None], normal)
+        sel = hit & (tn < tmin)
+        tmin = np.where(sel, tn, tmin)
+        color = np.where(sel[..., None], col, color)
+        nmap = np.where(sel[..., None], normal, nmap)
+
+    rgb = np.clip(color.transpose(2, 0, 1), 0.0, 1.0).astype(np.float32)
+    if not return_normal:
+        return rgb
+    # world -> camera: n_cam = R_w2c @ n_world (row form: n @ R_w2c^T)
+    n_cam = (nmap.reshape(-1, 3) @ Rwc.T).reshape(H, W, 3)
+    return rgb, n_cam.transpose(2, 0, 1).astype(np.float32)
+
+
+def sample_scene_points(rng, n_ground=2500, n_box=400, noise=0.05,
+                        n_sky=6000, sky_radius=45.0):
+    """COLMAP-style sparse init: noisy surface samples with noisy albedo,
+    plus a far sky-dome shell (visible sky needs *some* seed geometry —
+    gradient-driven densification can only clone existing Gaussians, so
+    pixels nothing renders to would otherwise never receive gradient)."""
+    pts, cols = [], []
+    if n_sky:
+        # upper-hemisphere directions (y is DOWN in this convention)
+        d = rng.normal(size=(n_sky, 3))
+        d[:, 1] = -np.abs(d[:, 1])
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        sky_t = np.clip(-d[:, 1], 0.0, 1.0) ** 0.7
+        c = SKY_BOT[None] * (1 - sky_t[:, None]) + SKY_TOP[None] * sky_t[:, None]
+        pts.append(np.array([0.0, 0.0, 10.0]) + d * sky_radius)
+        cols.append(c)
+    g = rng.uniform([-12, 1.5, 1.0], [12, 1.5, 40.0], (n_ground, 3))
+    checker = ((np.floor(g[:, 0]) + np.floor(g[:, 2])) % 2) == 0
+    c = np.where(checker[:, None], CHECKER_A, CHECKER_B)
+    pts.append(g)
+    cols.append(_shade(c, np.array([0, -1.0, 0])))
+    for box in BOXES:
+        lo, hi = _box_bounds(box)
+        base_y = 1.5
+        height = hi[1] - lo[1]
+        lo = lo.copy(); hi = hi.copy()
+        lo[1], hi[1] = base_y - height, base_y
+        albedo = np.array(box[2])
+        for axis in range(3):
+            for side in (0, 1):
+                m = n_box // 6 + 1
+                p = rng.uniform(lo, hi, (m, 3))
+                p[:, axis] = hi[axis] if side else lo[axis]
+                normal = np.zeros(3)
+                normal[axis] = 1.0 if side else -1.0
+                pts.append(p)
+                cols.append(np.tile(_shade(albedo, normal), (m, 1)))
+    pts = np.concatenate(pts).astype(np.float32)
+    cols = np.concatenate(cols).astype(np.float32)
+    pts = pts + rng.normal(0, noise, pts.shape).astype(np.float32)
+    cols = np.clip(
+        cols + rng.normal(0, noise, cols.shape), 0, 1).astype(np.float32)
+    return pts, cols
+
+
+# -- dynamic-object oracle: a "vehicle" box crossing the street -------------
+MOVER_SIZE = (1.4, 1.0, 2.0)
+MOVER_ALBEDO = (0.85, 0.55, 0.20)
+MOVER_INSTANCE = 26001  # KITTI-360 vehicle-range semantic id
+
+
+def mover_center(frame: int, n_frames: int):
+    s = frame / max(n_frames - 1, 1)
+    return (-2.2 + 4.4 * s, 0.0, 8.0 + 3.0 * s)
+
+
+def mover_box(frame: int, n_frames: int):
+    return (mover_center(frame, n_frames), MOVER_SIZE, MOVER_ALBEDO)
+
+
+def mover_box2world(frame: int, n_frames: int) -> np.ndarray:
+    """Canonical [-0.5, 0.5]^3 -> world transform of the mover at `frame`
+    (pure translation + per-axis scale; base resting on the ground plane)."""
+    (cx, _, cz) = mover_center(frame, n_frames)
+    sx, sy, sz = MOVER_SIZE
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = sx, sy, sz
+    m[:3, 3] = [cx, 1.5 - sy / 2.0, cz]
+    return m
+
+
+def mover_canonical_points(rng, n=420, noise=0.02):
+    """Noisy surface samples of the mover in its CANONICAL frame, with
+    shaded albedo colors (rotation is identity, so canonical face normals
+    are world face normals)."""
+    pts, cols = [], []
+    albedo = np.array(MOVER_ALBEDO)
+    m = n // 6 + 1
+    for axis in range(3):
+        for side in (-0.5, 0.5):
+            p = rng.uniform(-0.5, 0.5, (m, 3))
+            p[:, axis] = side
+            normal = np.zeros(3)
+            normal[axis] = np.sign(side)
+            pts.append(p)
+            cols.append(np.tile(_shade(albedo, normal), (m, 1)))
+    pts = np.concatenate(pts).astype(np.float32)
+    cols = np.concatenate(cols).astype(np.float32)
+    pts = np.clip(pts + rng.normal(0, noise, pts.shape), -0.49, 0.49)
+    return pts.astype(np.float32), np.clip(cols, 0, 1).astype(np.float32)
+
 
 def street_camera_infos(n: int, H: int, W: int, fovx=1.2, fovy=0.7,
-                        stereo_baseline=0.0):
-    """Forward-facing camera arc (KITTI-like ego motion with slight yaw) as
-    CameraInfo records without images; the same poses as the JAX package's
-    `street_camera_infos(..., render_gt=False)`. `stereo_baseline > 0`
-    emits two cameras per frame offset +-baseline/2 along the camera x axis."""
+                        render_gt=False, moving_box=False,
+                        render_normal=False, stereo_baseline=0.0):
+    """Forward-facing camera arc (KITTI-like ego motion with slight yaw)
+    as CameraInfo records, the same poses as the JAX package's
+    `street_camera_infos`. With `render_gt=True` each record carries a
+    ray-traced ground-truth image (the default here is False, where the JAX
+    package's is True: the full-width callers render their own ground
+    truth); `moving_box=True` composites the mover (`mover_box`) into it;
+    `render_normal=True` attaches the camera-space normal map. With
+    `stereo_baseline > 0` two cameras per frame, offset +-baseline/2 along
+    the camera x axis."""
     infos = []
     uid = 0
     for i in range(n):
@@ -34,12 +261,18 @@ def street_camera_infos(n: int, H: int, W: int, fovx=1.2, fovy=0.7,
         for ei, dx in enumerate(eyes):
             C = C0 + Rw2c[0] * dx
             T = -Rw2c @ C
+            img, nrm = None, None
+            if render_gt:
+                extra = [mover_box(i, n)] if moving_box else []
+                out = raytrace(Rw2c.T, T, H, W, fovx, fovy,
+                               extra_boxes=extra, return_normal=render_normal)
+                img, nrm = out if render_normal else (out, None)
             suffix = f"_{ei}" if stereo_baseline > 0 else ""
             infos.append(CameraInfo(
                 uid=uid, R=Rw2c.T, T=T, FovX=fovx, FovY=fovy, K=K,
-                image=None, image_path="",
+                image=img, image_path="",
                 image_name=f"street_{i:03d}{suffix}",
-                normal=None, normal_path="", width=W, height=H, frame=i))
+                normal=nrm, normal_path="", width=W, height=H, frame=i))
             uid += 1
     return infos
 
