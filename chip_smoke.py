@@ -91,8 +91,37 @@ Phases, one JSON line each; any failure exits non-zero:
                  (boxes_profile); then `render_all` ms per frame on the
                  3 frames, and K1 and K4 against their plain versions on
                  the first frame's inputs (limits of phases 3-5);
- 11. perf     -- the measurement path (`vegs_torch.perf`), after the
-                 boxes phase's tensors are freed: M1 (block sum) and M2
+ 11. cli      -- the training CLI from a KITTI-360 segment on disk, after
+                 the boxes phase's tensors are freed: a synthetic segment
+                 written under a temporary directory (2013_05_28_drive_0009
+                 frames 3972-3979, stereo 376x1408 with the reference's
+                 P_rect, camera 0 on the street cameras; a LiDAR PLY of the
+                 seeded field's first 2,133,571 means and DC colours plus
+                 200,000 hidden points, the COLMAP PLY of its other
+                 100,000; the boxes phase's 8 vehicles as dynamic points
+                 and an XML of 8 objects x 8 frames; 16 PNG frames rendered
+                 by `render_all` and written with PIL; 16 synthetic normal
+                 maps); the frames read back through the loader's
+                 `_load_image` equal to the bit, and its ms (cli_png);
+                 a probe that reads the segment through the loaders (the
+                 readers', knn's and Scene's seconds), runs the normal
+                 init and sizes --k_cap by the largest need + 25%
+                 (cli_probe); then `vegs_torch.train.main` run A (24
+                 iterations, densify at 16 and 24, a checkpoint at 12, a
+                 report at 24) and run B (the same with
+                 --start_checkpoint 12), each with the launch counters
+                 reset just before: K1-K4 in every step, K2 and K3 exactly
+                 once, each step's frame read from its PNG once, finite
+                 losses, run B's restored state equal to the checkpoint
+                 to the bit, the final PLYs (static and 8 instances)
+                 loaded back by `Scene(load_iteration=-1)` finite,
+                 cfg_args.json loading; ms per step (synchronized, the
+                 lazy PNG and npy read inside), the densify steps', the
+                 load, init, report and checkpoint times and sizes
+                 (cli_run); the host's ms to read a frame and its normal
+                 map (cli_frame_read); the launches of both runs (cli);
+ 12. perf     -- the measurement path (`vegs_torch.perf`), after the
+                 cli phase's tensors are freed: M1 (block sum) and M2
                  (transpose) against their plain versions at the probes'
                  full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
                  both layouts), with card, plain, library times and
@@ -102,8 +131,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
- 12. the kernels summary line (launches: the train phase's; launches_boxes:
-     the boxes phase's), then the card line, then the last line
+ 13. the kernels summary line (launches: the train phase's; launches_boxes:
+     the boxes phase's; launches_cli: the cli phase's), then the card line,
+     then the last line
      {"ok": true, "device": {...}}.
 
 Tolerances: K4 counts must agree (a tile may differ only by exactly one
@@ -148,6 +178,7 @@ version add in other orders; the sound readings on an H100 are at most
 from __future__ import annotations
 
 import json
+import os
 import sys
 import tempfile
 import time
@@ -1213,7 +1244,7 @@ def boxes_phase(dev, card) -> dict:
     """The dynamic-scene training path at full width (see phase 11)."""
     from vegs_torch import optim
     from vegs_torch.boxmodel import BoxDeltas
-    from vegs_torch.config import VegsConfig
+    from vegs_torch.config import ModelParams, VegsConfig
     from vegs_torch.ops import rasterize
     from vegs_torch.ops.rasterize import RasterizeConfig
     from vegs_torch.render import BoxInstance, render_all
@@ -1252,8 +1283,8 @@ def boxes_phase(dev, card) -> dict:
                               / "iteration_1" / "point_cloud.ply",
                               initialize_box_field(dyn, i, poses,
                                                    device="cpu"))
-        scene = Scene(model_dir, info, load_iteration=-1, shuffle=False,
-                      device=dev)
+        scene = Scene(ModelParams(model_path=model_dir), scene_info=info,
+                      load_iteration=-1, shuffle=False, device=dev)
     cams = scene.getTrainCameras()
     shares = {f"{c.frame}/{i}": footprint_share(c, poses[c.frame][i])
               for c in cams for i in insts}
@@ -1426,20 +1457,497 @@ def boxes_phase(dev, card) -> dict:
     return {**res, "k1": k1, "k4": k4}
 
 
+# the cli phase: a synthetic KITTI-360 segment on disk, read and trained by
+# the CLI (`vegs_torch.train.main`)
+CLI_SEQ = "2013_05_28_drive_0009_sync"
+CLI_START, CLI_FRAMES = 3972, 8
+CLI_COLMAP, CLI_HIDDEN = 100_000, 200_000   # the LiDAR cloud holds the rest
+# the reference's rectified intrinsics (tests/test_scene.py:88-95), a
+# KITTI-360-like stereo baseline
+CLI_K = np.array([[552.55, 0.0, 682.05], [0.0, 552.55, 238.77],
+                  [0.0, 0.0, 1.0]])
+CLI_BASELINE = 0.6
+CLI_ITERS, CLI_CKPT, CLI_DENSIFY = 24, 12, 8
+CLI_KCAP_MARGIN = 1.25   # --k_cap over the probed need (densify grows it)
+
+
+class Observe:
+    """Wrap attributes (or dict entries) for one run with wrappers made by
+    `factory(original)`, and put the originals back on exit."""
+
+    def __init__(self):
+        self.saved = []
+
+    def wrap(self, owner, name, factory):
+        get = owner.__getitem__ if isinstance(owner, dict) else (
+            lambda n: getattr(owner, n))
+        orig = get(name)
+        self.saved.append((owner, name, orig))
+        new = factory(orig)
+        if isinstance(owner, dict):
+            owner[name] = new
+        else:
+            setattr(owner, name, new)
+
+    def timer(self, owner, name, into: list, sync: bool = False):
+        def factory(orig):
+            def timed(*a, **kw):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return timed
+        self.wrap(owner, name, factory)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self.saved):
+            if isinstance(owner, dict):
+                owner[name] = orig
+            else:
+                setattr(owner, name, orig)
+
+
+def write_cli_segment(root: Path, dev) -> dict:
+    """The cli phase's synthetic KITTI-360 segment (phase 11). Returns
+    {"images": {path: uint8 [H, W, 3]}, ...sizes}."""
+    from vegs_torch.render import BoxInstance, render_all
+    from vegs_torch.scene import initialize_box_field, load_gaussian_ply
+    from vegs_torch.scene.dataset_readers import (DynamicPointCloud,
+                                                  camera_from_info,
+                                                  readKITTI360Cameras)
+    from PIL import Image
+
+    from vegs_torch.sh import sh_to_rgb
+    from vegs_torch.utils.synthetic import (kitti360_frame_paths,
+                                            mover_canonical_points,
+                                            street_camera_infos,
+                                            unit_normal_map,
+                                            write_kitti360_segment)
+
+    frames = list(range(CLI_START, CLI_START + CLI_FRAMES))
+    cam0_to_world = {}
+    for f, info in zip(frames, street_camera_infos(CLI_FRAMES, H, W,
+                                                    fovx=1.2, fovy=0.4)):
+        w2c = np.eye(4)
+        w2c[:3, :3] = info.R.T
+        w2c[:3, 3] = info.T
+        cam0_to_world[f] = np.linalg.inv(w2c)
+    poses = box_poses(CLI_FRAMES)
+    boxes = {f: poses[i] for i, f in enumerate(frames)}
+    insts = list(poses[0])
+    rng = np.random.default_rng(SEED + 21)
+    dyn = [[] for _ in range(4)]
+    for gid in insts:  # each vehicle's points, each seen in one frame
+        p, c = mover_canonical_points(rng, n=BOX_POINTS)
+        seen = np.arange(len(p)) % CLI_FRAMES
+        for i, f in enumerate(frames):
+            sel = seen == i
+            world = (np.c_[p[sel], np.ones(sel.sum())] @ boxes[f][gid].T)[:, :3]
+            for lst, v in zip(dyn, (world, c[sel], np.full(sel.sum(), gid),
+                                    np.full(sel.sum(), f))):
+                lst.append(v)
+    dxyz, dcol, dids, dts = (np.concatenate(v) for v in dyn)
+    drgb = np.round(dcol * 255).astype(np.uint8)
+
+    write_field_ply(root.parent / "field.ply", N_REF, SEED)
+    field = load_gaussian_ply(root.parent / "field.ply", device=dev)
+    xyz = field.means.detach()[:N_REF].cpu().numpy()
+    rgb = np.round(np.clip(sh_to_rgb(field.sh_dc.detach()[:N_REF, 0].cpu()
+                                     .numpy()), 0, 1) * 255).astype(np.uint8)
+    n_lidar = N_REF - CLI_COLMAP
+    z = rng.uniform(2.0, 60.0, CLI_HIDDEN)
+    hidden = np.stack([z * np.tan(0.6) * rng.uniform(-1, 1, CLI_HIDDEN),
+                       z * np.tan(0.2) * rng.uniform(-1, 1, CLI_HIDDEN), z], 1)
+    static = (np.concatenate([xyz[:n_lidar], hidden]),
+              np.concatenate([rgb[:n_lidar], rng.integers(
+                  0, 256, (CLI_HIDDEN, 3)).astype(np.uint8)]),
+              np.r_[np.ones(n_lidar), np.zeros(CLI_HIDDEN)])
+    write_kitti360_segment(
+        root, CLI_SEQ, CLI_START, CLI_START + CLI_FRAMES, CLI_K, W, H,
+        cam0_to_world, CLI_BASELINE, static, (xyz[n_lidar:], rgb[n_lidar:]),
+        (dxyz, drgb, dids, dts, np.full(len(dids), 26),
+         np.ones(len(dids))), boxes)
+
+    # ground truth: the seeded field and the box fields the loader seeds
+    dpc = DynamicPointCloud(dxyz.astype(np.float32), drgb / 255.0, dids, dts)
+    box_fields = {g: initialize_box_field(dpc, g, boxes, device=dev)
+                  for g in insts}
+    infos = readKITTI360Cameras(str(root), CLI_SEQ, CLI_START,
+                                CLI_START + CLI_FRAMES)
+    cams = [camera_from_info(i) for i in infos]
+
+    def boxes_of(cam):
+        return [BoxInstance(box_fields[g], torch.from_numpy(
+            boxes[cam.frame][g].astype(np.float32)).to(dev)) for g in insts]
+
+    images = {}
+    with torch.inference_mode():
+        cfg, need_raw, _ = sized_config(field, cams, dev, boxes_of,
+                                        BOX_PROBE_CAP)
+        for info, cam in zip(infos, cams):
+            out, _ = render_all(cam.device_params(dev), field, boxes_of(cam),
+                                config=cfg._replace(forward_only=True))
+            if int(out.num_dropped):
+                raise AssertionError("a ground-truth frame drops instances")
+            img = (torch.clamp(out.rgb, 0, 1) * 255).round().to(
+                torch.uint8).permute(1, 2, 0).cpu().numpy()
+            img_path, normal_path = kitti360_frame_paths(
+                root, CLI_SEQ, info.cam_idx, info.frame)
+            os.makedirs(os.path.dirname(img_path), exist_ok=True)
+            Image.fromarray(img).save(img_path)
+            images[img_path] = img
+            os.makedirs(os.path.dirname(normal_path), exist_ok=True)
+            np.save(normal_path, unit_normal_map(H, W, seed=info.uid))
+    return {"images": images, "lidar_points": int(static[2].sum()),
+            "hidden_points": CLI_HIDDEN, "colmap_points": CLI_COLMAP,
+            "dynamic_points": len(dids), "vehicles": len(insts),
+            "gt_need_raw": need_raw}
+
+
+def png_check(images: dict) -> dict:
+    """The written frames read back through the loader's `_load_image`
+    (PIL) equal the arrays written, to the bit; its ms per frame."""
+    from vegs_torch.scene.cameras import _load_image
+
+    ms = []
+    for path, img in images.items():
+        t0 = time.perf_counter()
+        got = _load_image(path)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        back = np.round(got.transpose(1, 2, 0) * 255).astype(np.uint8)
+        if not np.array_equal(back, img):
+            raise AssertionError(f"{path} does not decode to what was written")
+    return {"frames": len(images), "decode_ms": float(np.median(ms)),
+            "decode_ms_all": ms}
+
+
+def cli_argv(root: Path, model: Path, k_cap: int, *extra) -> list:
+    return ["--source_path", str(root), "--model_path", str(model),
+            "--data_type", "kitti360", "--seq", CLI_SEQ,
+            "--start_frame", str(CLI_START),
+            "--end_frame", str(CLI_START + CLI_FRAMES), "--eval",
+            "--iterations_override", str(CLI_ITERS),
+            "--checkpoint_iterations", str(CLI_CKPT),
+            "--test_iterations", str(CLI_ITERS),
+            "--densify_from_iter", str(CLI_DENSIFY),
+            "--densification_interval", str(CLI_DENSIFY),
+            "--data_parallel", "1", "--k_cap", str(k_cap), *extra]
+
+
+def cli_probe(root: Path, dev) -> dict:
+    """What a user sizes --k_cap by: the scene read through the loaders,
+    the normal init, and the largest need of a training view with its
+    boxes. Times the readers, the knn scales and `Scene`."""
+    from vegs_torch import gaussians
+    from vegs_torch.config import parse_config
+    from vegs_torch.render import BoxInstance
+    from vegs_torch.scene import Scene, box_matrix
+    from vegs_torch.scene.dataset_readers import sceneLoadTypeCallbacks
+    from vegs_torch.train import Trainer
+
+    cfg = parse_config(cli_argv(root, root.parent / "probe", 1 << 20))
+    t = {"readers": [], "knn": [], "scene": []}
+    with Observe() as ob:
+        ob.timer(sceneLoadTypeCallbacks, "KITTI360", t["readers"])
+        ob.timer(gaussians, "knn_mean_sq_dist", t["knn"])
+        t0 = time.perf_counter()
+        scene = Scene(cfg.model, cfg.data, cfg.box, device=dev)
+        torch.cuda.synchronize()
+        t["scene"].append(time.perf_counter() - t0)
+    trainer = Trainer(cfg, scene, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_init = trainer.init_from_normals()
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+
+    def boxes_of(cam):
+        bx = scene.train_bboxes.get(cam.frame, {})
+        return [BoxInstance(scene.box_gaussians[g], torch.from_numpy(
+            box_matrix(m).astype(np.float32)).to(dev))
+            for g, m in bx.items() if g in scene.box_gaussians][:8]
+
+    with torch.inference_mode():
+        _, need_raw, need_pad = sized_config(
+            trainer.state.field, scene.getTrainCameras(), dev, boxes_of,
+            BOX_PROBE_CAP)
+    n_points = int(scene.gaussians.num_active())
+    boxes_per_frame = sorted({len(boxes_of(c)) for c in scene.getTrainCameras()})
+    return {"readers_s": t["readers"][0], "knn_s": t["knn"][0],
+            "scene_s": t["scene"][0], "norm_init_ms": init_ms,
+            "norm_init_count": n_init, "points": n_points,
+            "box_fields": len(scene.box_gaussians),
+            "boxes_per_frame": boxes_per_frame,
+            "train_cameras": len(scene.getTrainCameras()),
+            "test_cameras": len(scene.getTestCameras()),
+            "need_raw": need_raw, "need_pad": need_pad,
+            "k_cap": r512(need_raw * CLI_KCAP_MARGIN)}
+
+
+def _trees_equal(a, b) -> tuple:
+    """(equal, leaves compared) of two checkpoint trees, to the bit."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return False, 0
+        res = [_trees_equal(a[k], b[k]) for k in a]
+        return all(r[0] for r in res), sum(r[1] for r in res)
+    return bool(a.dtype == b.dtype and torch.equal(a, b)), 1
+
+
+def cli_run(argv: list, counters: dict) -> tuple:
+    """One `vegs_torch.train.main(argv)` run on the card, observed from
+    outside: each step's ms (synchronized, the lazy PNG/npy read inside),
+    its K1-K4 launches and frame reads, the load and init times, the
+    report's, the checkpoint's save or load (and the restored state against
+    the file, to the bit). The launch counters are set to 0 just before
+    `main` and read just after. Returns (Trainer, record)."""
+    from vegs_torch import gaussians, train
+    from vegs_torch.scene import cameras
+    from vegs_torch.scene.dataset_readers import sceneLoadTypeCallbacks
+
+    rec = {"steps": [], "readers_s": [], "knn_s": [], "scene_s": [],
+           "norm_init_s": [], "report": [], "checkpoint_save": [],
+           "checkpoint_load": [], "frame_read_s": []}
+
+    def step_factory(orig):
+        def step(self, it, camera=None):
+            before = {k: c.launches for k, c in counters.items()}
+            r0 = len(rec["frame_read_s"])
+            t0 = time.perf_counter()
+            m = orig(self, it, camera)
+            torch.cuda.synchronize()
+            rec["steps"].append({
+                "it": it, "ms": (time.perf_counter() - t0) * 1e3,
+                "loss": m["loss"], "num_dropped": m["num_dropped"],
+                "num_needed_raw": m["num_needed_raw"],
+                "k_cap": self.raster_cfg.k_cap,
+                "densify": (it % self.cfg.opt.densification_interval == 0
+                            and it > self.cfg.opt.densify_from_iter),
+                "n_active": int(self.state.field.num_active()),
+                "frame_reads": len(rec["frame_read_s"]) - r0,
+                "launches": {k: c.launches - before[k]
+                             for k, c in counters.items()}})
+            return m
+        return step
+
+    def report_factory(orig):
+        def report(self, it, out_dir=None):
+            before = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = orig(self, it, out_dir)
+            torch.cuda.synchronize()
+            rec["report"].append({
+                "it": it, "s": time.perf_counter() - t0, "result": r,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": {k: c.launches - before[k]
+                             for k, c in counters.items()},
+                "pngs": sorted(p.name for p in (Path(out_dir)
+                                                / f"iter_{it}").iterdir())})
+            return r
+        return report
+
+    def save_factory(orig):
+        def save(self, it):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(self, it)
+            rec["checkpoint_save"].append({
+                "it": it, "s": time.perf_counter() - t0,
+                "bytes": self.checkpoint_path(it).stat().st_size})
+        return save
+
+    def load_factory(orig):
+        def load(self, it):
+            t0 = time.perf_counter()
+            orig(self, it)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            saved = torch.load(self.checkpoint_path(it), map_location="cpu",
+                               weights_only=True)
+            equal, leaves = _trees_equal(self._checkpoint_tree(), saved)
+            rec["checkpoint_load"].append({
+                "it": it, "s": s, "bytes": self.checkpoint_path(it).stat().st_size,
+                "restored_equal": equal, "leaves": leaves,
+                "step": int(self.state.step)})
+        return load
+
+    stdout = sys.stdout
+    with Observe() as ob:
+        ob.wrap(train.Trainer, "train_iteration", step_factory)
+        ob.wrap(train.Trainer, "training_report", report_factory)
+        ob.wrap(train.Trainer, "save_checkpoint", save_factory)
+        ob.wrap(train.Trainer, "load_checkpoint", load_factory)
+        ob.timer(train.Trainer, "init_from_normals", rec["norm_init_s"],
+                 sync=True)
+        ob.timer(sceneLoadTypeCallbacks, "KITTI360", rec["readers_s"])
+        ob.timer(gaussians, "knn_mean_sq_dist", rec["knn_s"])
+        ob.timer(train, "Scene", rec["scene_s"], sync=True)
+        ob.timer(cameras, "_load_image", rec["frame_read_s"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        try:
+            trainer = train.main(argv)
+        finally:
+            sys.stdout = stdout   # main's safe_state timestamps stdout
+        torch.cuda.synchronize()
+        rec["main_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: c.launches for k, c in counters.items()}
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return trainer, rec
+
+
+def check_cli_run(name: str, trainer, rec: dict, first_it: int) -> dict:
+    """The run's steps: K1-K4 in every step, K2 and K3 exactly once, the
+    ground truth read from its PNG, finite losses; then its final
+    PLYs (the static field and every instance) loaded back through
+    `Scene(load_iteration=-1)` with finite values. Returns the summary."""
+    from vegs_torch.scene import Scene
+
+    steps = rec["steps"]
+    its = [s_["it"] for s_ in steps]
+    if its != list(range(first_it, CLI_ITERS + 1)):
+        raise AssertionError(f"run {name} trained iterations {its}")
+    for s_ in steps:
+        ln = s_["launches"]
+        if min(ln.values()) < 1 or ln["K2"] != 1 or ln["K3"] != 1:
+            raise AssertionError(f"run {name} step {s_['it']} launches {ln}")
+        if s_["frame_reads"] != 1:
+            raise AssertionError(f"run {name} step {s_['it']} read "
+                                 f"{s_['frame_reads']} frames")
+    losses = [s_["loss"] for s_ in steps]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"run {name} losses {losses}")
+    back = Scene(trainer.cfg.model, scene_info=trainer.scene.scene_info,
+                 load_iteration=-1, shuffle=False, device=trainer.device)
+    if back.loaded_iter != CLI_ITERS or len(back.box_gaussians) != len(
+            trainer.box_fields):
+        raise AssertionError(f"run {name} saved iteration {back.loaded_iter}, "
+                             f"{len(back.box_gaussians)} instances")
+    for f in [back.gaussians, *back.box_gaussians.values()]:
+        for k in ("means", "quats", "log_scales", "sh_dc", "sh_rest",
+                  "opacity_logit"):
+            if not torch.isfinite(getattr(f, k)).all():
+                raise AssertionError(f"run {name}: PLY {k} not finite")
+    plain = [s_["ms"] for s_ in steps[1:] if not s_["densify"]]
+    return {"iterations": [its[0], its[-1]], "loss": losses,
+            "ms_per_step": float(np.median(plain)),
+            "png_read_ms": float(np.median(rec["frame_read_s"])) * 1e3,
+            "ms_steps": [s_["ms"] for s_ in steps],
+            "densify_step_ms": {s_["it"]: s_["ms"] for s_ in steps
+                                if s_["densify"]},
+            "k_cap": [steps[0]["k_cap"], steps[-1]["k_cap"]],
+            "num_dropped": [s_["num_dropped"] for s_ in steps],
+            "num_needed_raw": [s_["num_needed_raw"] for s_ in steps],
+            "n_active": [steps[0]["n_active"], steps[-1]["n_active"]],
+            "launches": rec["launches"], "main_s": rec["main_s"],
+            "readers_s": rec["readers_s"], "knn_s": rec["knn_s"],
+            "scene_s": rec["scene_s"],
+            "norm_init_ms": [x * 1e3 for x in rec["norm_init_s"]],
+            "report": [{k: v for k, v in r.items()} for r in rec["report"]],
+            "checkpoint_save": rec["checkpoint_save"],
+            "checkpoint_load": rec["checkpoint_load"],
+            "max_memory_allocated": rec["max_memory_allocated"],
+            "ply_instances": len(back.box_gaussians),
+            "ply_points": int(back.gaussians.num_active())}
+
+
+def cli_frame_read(trainer) -> dict:
+    """The host's read of a training frame and its normal map (the lazy
+    load inside each CLI step), on run B's Trainer after its run."""
+    cams = trainer.scene.getTrainCameras()[:3]
+    t0 = time.perf_counter()
+    for cam in cams:
+        np.asarray(cam.original_image, np.float32)
+        cam.world_normal()
+    return {"frame_read_ms": (time.perf_counter() - t0) * 1e3 / len(cams),
+            "frames": len(cams)}
+
+
+def cli_phase(dev, card) -> dict:
+    """The training CLI from a KITTI-360 segment on disk (see phase 11)."""
+    from vegs_torch.config import VegsConfig
+
+    counters = main_counters()
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti360"
+        t0 = time.perf_counter()
+        seg = write_cli_segment(root, dev)
+        torch.cuda.empty_cache()
+        seg["write_s"] = time.perf_counter() - t0
+        pngs = png_check(seg.pop("images"))
+        emit("cli_segment", card=card, **seg)
+        emit("cli_png", card=card, **pngs)
+        os.chdir(tmp)   # the readers write their point cache to ./.cache
+        try:
+            probe = cli_probe(root, dev)
+            torch.cuda.empty_cache()
+            emit("cli_probe", card=card, **probe)
+            model = tmp / "model"
+            argv = cli_argv(root, model, probe["k_cap"])
+            trainer, rec_a = cli_run(argv, counters)
+            run_a = check_cli_run("A", trainer, rec_a, 1)
+            if not rec_a["checkpoint_save"] or rec_a["checkpoint_load"]:
+                raise AssertionError("run A: one checkpoint saved, none loaded")
+            rep = rec_a["report"]
+            if len(rep) != 1 or len(rep[0]["pngs"]) != 8:
+                raise AssertionError(f"run A's report: {rep}")
+            VegsConfig.load(model / "cfg_args.json")
+            del trainer
+            torch.cuda.empty_cache()
+            emit("cli_run", run="A", card=card, **run_a)
+
+            trainer, rec_b = cli_run(
+                argv + ["--start_checkpoint", str(CLI_CKPT)], counters)
+            run_b = check_cli_run("B", trainer, rec_b, CLI_CKPT + 1)
+            ld = rec_b["checkpoint_load"]
+            if (len(ld) != 1 or not ld[0]["restored_equal"]
+                    or ld[0]["step"] != CLI_CKPT):
+                raise AssertionError(f"run B's restore: {ld}")
+            emit("cli_frame_read", card=card, **cli_frame_read(trainer))
+            del trainer
+            torch.cuda.empty_cache()
+            emit("cli_run", run="B", card=card, **run_b)
+        finally:
+            os.chdir(cwd)
+    launches = {k: run_a["launches"][k] + run_b["launches"][k]
+                for k in run_a["launches"]}
+    emit("cli", card=card, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return {"probe": probe, "png": pngs, "A": run_a, "B": run_b,
+            "launches": launches}
+
+
 def kernel_times(kernel, plain, library) -> dict:
     """The card's own ms per call (torch.profiler: the summed durations of
     the device operations each call launches, without host gaps) of a
     kernel's wrapper, its plain version and the library call, and the
     kernel's stream ms (CUDA events, host gaps included). A kernel of a few
     tens of microseconds behind a Python wrapper is timed by the former:
-    between launches the stream waits on the host."""
+    between launches the stream waits on the host. "device_sources" says,
+    for the three, whether the profiler or `timing.queued_ms` (the
+    fallback where the profiler recorded nothing) gave the time."""
     from vegs_torch.perf.timing import (DEVICE_OVER_STREAM, cuda_ms,
                                         device_profile)
 
-    t = {"ms": device_profile(kernel)["device_ms"],
-         "stream_ms": cuda_ms(kernel),
-         "plain_ms": device_profile(plain)["device_ms"],
-         "library_ms": device_profile(library)["device_ms"]}
+    k, p, lib = (device_profile(fn) for fn in (kernel, plain, library))
+    t = {"ms": k["device_ms"], "stream_ms": cuda_ms(kernel),
+         "plain_ms": p["device_ms"], "library_ms": lib["device_ms"],
+         "device_sources": [x["device_source"] for x in (k, p, lib)]}
     if t["ms"] > DEVICE_OVER_STREAM * t["stream_ms"]:
         raise AssertionError(f"device time over stream time: {t}")
     return t
@@ -1552,6 +2060,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from vegs_torch import kernels
+    from vegs_torch.config import ModelParams
     from vegs_torch.ops import blend_cuda, satcull, segreduce
     from vegs_torch.ops.rasterize import (RasterizeConfig,
                                           SAT_MIN_SLOTS_PER_TILE, stage)
@@ -1627,8 +2136,8 @@ def main() -> int:
         infos = street_camera_infos(3, H, W, fovx=1.2, fovy=0.4)
         info = SceneInfo(point_cloud=None, train_cameras=infos, test_cameras=[],
                          nerf_normalization=getNerfppNorm(infos), ply_path="")
-        scene = Scene(model_dir, info, load_iteration=-1, shuffle=False,
-                      device=dev)
+        scene = Scene(ModelParams(model_path=model_dir), scene_info=info,
+                      load_iteration=-1, shuffle=False, device=dev)
         setup_s = time.perf_counter() - t0
     n_interp, max_frames = 4, 3
     cams = interpolate_cameras(scene.getTrainCameras(), n_interp)[:max_frames]
@@ -1866,21 +2375,27 @@ def main() -> int:
     boxes = boxes_phase(dev, card)
     torch.cuda.empty_cache()
 
-    # -- 12. the measurement path, on a card freed of the earlier phases ----
+    # -- 12. the training CLI from a KITTI-360 segment on disk -----------------
+    cli = cli_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 13. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
 
-    # -- 13. summary ---------------------------------------------------------
+    # -- 14. summary ---------------------------------------------------------
     launches = {**train["launches"]}
     m1, m2 = perf["M1"], perf["M2"]
     # launches: the static train phase's 8 steps; launches_boxes: the
-    # boxes phase's 8 steps
+    # boxes phase's 8 steps; launches_cli: the cli phase's two `main` runs
+    # (24 + 12 steps, their reports)
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
          "source": "vegs_torch/csrc/blend_fwd.cu",
          "replaces": "vegs_tpu/ops/blend_pallas.py:201",
          "launches": launches["K1"],
-         "launches_boxes": boxes["launches"]["K1"], "matches_plain": True,
+         "launches_boxes": boxes["launches"]["K1"],
+         "launches_cli": cli["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -1891,7 +2406,8 @@ def main() -> int:
          "source": "vegs_torch/csrc/blend_bwd.cu",
          "replaces": "vegs_tpu/ops/blend_pallas.py:274",
          "launches": launches["K2"],
-         "launches_boxes": boxes["launches"]["K2"], "matches_plain": True,
+         "launches_boxes": boxes["launches"]["K2"],
+         "launches_cli": cli["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -1904,7 +2420,8 @@ def main() -> int:
          "source": "vegs_torch/csrc/segreduce.cu",
          "replaces": "vegs_tpu/ops/segreduce.py:46",
          "launches": launches["K3"],
-         "launches_boxes": boxes["launches"]["K3"], "matches_plain": True,
+         "launches_boxes": boxes["launches"]["K3"],
+         "launches_cli": cli["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
@@ -1919,7 +2436,8 @@ def main() -> int:
          "source": "vegs_torch/csrc/satcount.cu",
          "replaces": "vegs_tpu/ops/satcull.py:65",
          "launches": launches["K4"],
-         "launches_boxes": boxes["launches"]["K4"], "matches_plain": True,
+         "launches_boxes": boxes["launches"]["K4"],
+         "launches_cli": cli["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,

@@ -37,6 +37,7 @@ from vegs_tpu import render as jrender
 from vegs_torch import boxmodel as tbox, convert, optim as toptim
 from vegs_torch import render as trender
 from vegs_torch.config import OptimizationParams as TOpt
+from vegs_torch.config import ModelParams as TModelParams
 from vegs_torch.convert import camera_params_from_numpy
 from vegs_torch.ops.rasterize import RasterizeConfig as TConfig
 
@@ -388,8 +389,8 @@ def test_scene_box_fields_match_jax_and_save_roundtrip(tmp_path):
     mp = ModelParams()
     mp.model_path = str(tmp_path / "jax")
     js = JScene(mp, scene_info=_dyn_info(jreaders), shuffle=False)
-    ts = TScene(tmp_path / "port", _dyn_info(treaders), load_iteration=None,
-                shuffle=False, device="cpu")
+    ts = TScene(TModelParams(model_path=str(tmp_path / "port")),
+                scene_info=_dyn_info(treaders), shuffle=False, device="cpu")
     assert list(ts.box_gaussians) == list(js.box_gaussians) == [7, 8, 9]
     for inst, jf in js.box_gaussians.items():
         got = convert.field_to_numpy(ts.box_gaussians[inst])
@@ -404,7 +405,8 @@ def test_scene_box_fields_match_jax_and_save_roundtrip(tmp_path):
     assert set(ts.train_bboxes[0]) == {7, 8}
     assert set(js.train_bboxes[0]) == {7, 8, 9}
     ts.save(3)
-    back = TScene(tmp_path / "port", _dyn_info(treaders), load_iteration=-1,
+    back = TScene(TModelParams(model_path=str(tmp_path / "port")),
+                  scene_info=_dyn_info(treaders), load_iteration=-1,
                   shuffle=False, device="cpu")
     assert back.loaded_iter == 3
     for inst, f in ts.box_gaussians.items():  # the PLY holds the valid rows

@@ -55,6 +55,7 @@ from vegs_tpu.render import BoxInstance as JBoxInstance, render_all as jrender_a
 from vegs_tpu.scene import Scene as JScene, dataset_readers as jreaders
 from vegs_tpu.train import Trainer as JTrainer
 from vegs_torch import convert, gaussians as tgauss, optim
+from vegs_torch.config import ModelParams
 from vegs_torch.ops.rasterize import RasterizeConfig
 from vegs_torch.scene import Scene, dataset_readers as treaders
 from vegs_torch.train import Trainer
@@ -203,7 +204,7 @@ def _trainers():
                 delta_t=jnp.zeros(3)))
 
     tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    ts = Scene("", _scene_info(treaders), load_iteration=None, shuffle=False,
+    ts = Scene(ModelParams(), scene_info=_scene_info(treaders), shuffle=False,
                device="cpu")
     ts.box_gaussians[B] = tgauss.create_from_points(
         pts, cols, capacity=8192, scale_clip=(1e-7, 1e-4), device="cpu")
@@ -344,7 +345,7 @@ def test_evaluate_composites_the_frames_boxes():
     from vegs_torch.config import VegsConfig
     from vegs_torch.render import BoxInstance, render_all
 
-    scene = Scene("", _scene_info(treaders), load_iteration=None,
+    scene = Scene(ModelParams(), scene_info=_scene_info(treaders),
                   shuffle=False, device="cpu")
     raster = RasterizeConfig(k_cap=K_CAP, forward_only=True)
     tr = Trainer(VegsConfig(), scene, raster_cfg=raster, device="cpu")

@@ -533,6 +533,31 @@ def test_blocksum_kernel_matches_plain(cuda, dtype, c, layout):
     assert torch.equal(got, micro3.psum_consume(y))
 
 
+def test_queued_ms_agrees_with_profiler(cuda, monkeypatch):
+    """`queued_ms`, the timer `device_profile` falls back to when the
+    profiler records nothing, reads M2's device time at K = 2^21 within
+    25% of the profiler's (two windows, so some noise), and raises on a
+    call that waits on the card; with no profiler window left,
+    `device_profile` takes `queued_ms`'s time, or the stream's for such a
+    call."""
+    from vegs_torch.perf import micro3, timing
+
+    x = _probe_input(cuda, 1 << 21, 8, torch.float32)
+    prof = timing.device_profile(lambda: micro3.transpose(x))
+    queued = timing.queued_ms(lambda: micro3.transpose(x))
+    print(f"M2 profiler {prof['device_ms']} ms, queued {queued} ms")
+    assert prof["device_source"] == "profiler"
+    assert abs(queued - prof["device_ms"]) <= 0.25 * prof["device_ms"]
+    with pytest.raises(timing.HostPaced, match="wait on the card"):
+        timing.queued_ms(lambda: float(micro3.transpose(x)[0, 0]))
+    monkeypatch.setattr(timing, "PROFILE_TRIES", 0)
+    blank = timing.device_profile(lambda: micro3.transpose(x))
+    assert blank["device_source"] == "queued_events"
+    assert abs(blank["device_ms"] - prof["device_ms"]) <= 0.25 * prof["device_ms"]
+    paced = timing.device_profile(lambda: float(micro3.transpose(x)[0, 0]))
+    assert paced["device_source"] == "stream_events" and paced["device_ms"] > 0
+
+
 def test_probe_kernels_refuse_misaligned_input(cuda):
     from vegs_torch.perf import micro3
 

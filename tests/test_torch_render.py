@@ -30,6 +30,7 @@ from vegs_tpu.utils.synthetic import street_camera_infos as jstreet
 
 import vegs_torch
 from vegs_torch import convert, render_video as tvideo
+from vegs_torch.config import ModelParams as TModelParams
 from vegs_torch.gaussians import from_ply_arrays, to_ply_arrays
 from vegs_torch.ops.rasterize import RasterizeConfig as TConfig, rasterize
 from vegs_torch.render import render
@@ -76,7 +77,8 @@ def scenes(tmp_path_factory):
     js = JScene(ModelParams(model_path=str(model)),
                 scene_info=info(jreaders, jstreet(2, H, W, render_gt=False)),
                 load_iteration=-1, shuffle=False)
-    ts = TScene(model, info(treaders, tstreet(2, H, W)), load_iteration=-1,
+    ts = TScene(TModelParams(model_path=str(model)),
+                scene_info=info(treaders, tstreet(2, H, W)), load_iteration=-1,
                 shuffle=False, device="cpu")
     return js, ts
 
@@ -201,7 +203,9 @@ def test_port_imports_neither_jax_nor_vegs_tpu():
               "losses.normal_guidance", "ops.segreduce", "ops.blend_cuda",
               "ops.rasterize", "scene.dataset_readers", "perf.micro3",
               "perf.refscale", "perf.roofline", "perf.timing", "boxmodel",
-              "priors.norminit", "utils.synthetic"):
+              "priors.norminit", "utils.synthetic",
+              "scene.kitti360_loader", "scene.colmap_loader",
+              "scene.kitti_loader", "utils.general", "utils.logging"):
         assert f"vegs_torch.{m}" in loaded, m
 
 

@@ -28,7 +28,7 @@ from vegs_tpu.ops.rasterize import RasterizeConfig as JRaster
 from vegs_tpu.scene import Scene as JScene, dataset_readers as jreaders
 from vegs_tpu.train import Trainer as JTrainer, eval_render
 from vegs_torch import convert
-from vegs_torch.config import VegsConfig
+from vegs_torch.config import ModelParams, VegsConfig
 from vegs_torch.ops.rasterize import RasterizeConfig
 from vegs_torch.render import render
 from vegs_torch.scene import Scene, dataset_readers as treaders
@@ -91,7 +91,7 @@ def test_trainer_matches_jax_over_six_steps_with_a_densify_event():
     jt.state = jt.state.replace(field=f.replace(sh_dc=f.sh_dc + 0.35))
 
     tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    ts = Scene("", _scene_info(treaders), load_iteration=None, shuffle=False,
+    ts = Scene(ModelParams(), scene_info=_scene_info(treaders), shuffle=False,
                device="cpu")
     for tc, jc in zip(ts.train_cameras + ts.test_cameras,
                       js.train_cameras + js.test_cameras):
@@ -138,7 +138,7 @@ def test_static_training_descends():
     cfg = VegsConfig()
     cfg.opt.densify_from_iter = 10**9  # pure optimisation
     raster = RasterizeConfig(k_cap=K_CAP)
-    scene = Scene("", _scene_info(treaders), load_iteration=None,
+    scene = Scene(ModelParams(), scene_info=_scene_info(treaders),
                   shuffle=False, device="cpu")
     tr = Trainer(cfg, scene, raster_cfg=raster, device="cpu")
     with torch.no_grad():
@@ -157,7 +157,7 @@ def test_static_training_descends():
 
 
 def test_trainer_needs_its_device(monkeypatch):
-    scene = Scene("", _scene_info(treaders), load_iteration=None,
+    scene = Scene(ModelParams(), scene_info=_scene_info(treaders),
                   shuffle=False, device="cpu")
     with pytest.raises(ValueError, match="lies on"):
         Trainer(VegsConfig(), scene, device="meta")
@@ -165,4 +165,4 @@ def test_trainer_needs_its_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(VegsConfig(), scene)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        Scene("", _scene_info(treaders), load_iteration=None, shuffle=False)
+        Scene(ModelParams(), scene_info=_scene_info(treaders), shuffle=False)

@@ -1,9 +1,11 @@
 """Configuration tree (port of vegs_tpu/config.py): the parameter groups
 with the reference CLI's names and defaults, as dataclasses serialized to
-JSON. The argparse helpers wait with the training CLI."""
+JSON (`cfg_args.json` written by either package loads in the other), and
+the CLI flags reflected from them (`add_group_args`, `parse_config`)."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from dataclasses import dataclass, field
@@ -140,3 +142,48 @@ class VegsConfig:
     @staticmethod
     def load(path) -> "VegsConfig":
         return VegsConfig.from_json(Path(path).read_text())
+
+
+def add_group_args(parser: argparse.ArgumentParser, cfg_cls, prefix: str = "") -> None:
+    """Reflect a dataclass into argparse flags (the reference's ParamGroup
+    pattern): a bool is a store_true flag; an int, float or str field takes
+    that type, any other annotation a string."""
+    for f in dataclasses.fields(cfg_cls):
+        name = f"--{prefix}{f.name}"
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if f.type in ("bool", bool):
+            parser.add_argument(name, action="store_true", default=default)
+        else:
+            typ = {"int": int, "float": float, "str": str}.get(str(f.type), str)
+            if f.type in (int, float, str):
+                typ = f.type
+            parser.add_argument(name, type=typ, default=default)
+
+
+def parse_config(argv=None) -> VegsConfig:
+    """Build a VegsConfig from CLI flags (flat names, groups merged).
+
+    Only the flags it knows are taken (parse_known_args), so the training
+    CLI's own flags pass through. `--config` starts from a JSON config; a
+    flag then overrides its value only when it differs from the field's
+    default (a flag given at its default leaves the JSON's value)."""
+    parser = argparse.ArgumentParser("vegs_torch")
+    parser.add_argument("--config", type=str, default=None,
+                        help="JSON config to start from")
+    for cls in (ModelParams, PipelineParams, OptimizationParams,
+                KITTI360DataParams, BoxModelParams, SDRegularizationParams):
+        add_group_args(parser, cls)
+    args, _ = parser.parse_known_args(argv)
+
+    cfg = VegsConfig.load(args.config) if args.config else VegsConfig()
+    for group_name, cls in (
+        ("model", ModelParams), ("pipeline", PipelineParams),
+        ("opt", OptimizationParams), ("data", KITTI360DataParams),
+        ("box", BoxModelParams), ("sd", SDRegularizationParams),
+    ):
+        group = getattr(cfg, group_name)
+        for f in dataclasses.fields(cls):
+            v = getattr(args, f.name, None)
+            if v is not None and v != f.default:
+                setattr(group, f.name, v)
+    return cfg

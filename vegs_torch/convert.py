@@ -2,14 +2,16 @@
 package's numpy arrays.
 
 The arrays come as plain numpy (e.g. `np.asarray` of each field of a
-vegs_tpu GaussianField, TrainState or CameraParams) and configs as plain
-dicts (`dataclasses.asdict`), so this module needs nothing from the JAX
-package. The PLY snapshot (`vegs_torch.scene.load_gaussian_ply`) is the
+vegs_tpu GaussianField, TrainState or CameraParams; CPU tensors do too) and
+configs as plain dicts (`dataclasses.asdict`), so this module needs nothing
+from the JAX package. `checkpoint_from_numpy` takes a whole Trainer
+checkpoint tree, the JAX package's or the port's. The PLY snapshot (`vegs_torch.scene.load_gaussian_ply`) is the
 other bridge: a PLY written by the JAX package loads unchanged.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -143,26 +145,27 @@ def box_state_from_numpy(arrays: dict, device=None) -> dict:
     "frame_delta_opts": {(frame, inst): tensor Adam arrays}} -> the same
     keys, which are the port Trainer's attribute names, with port objects.
 
-    Each box field keeps its valid rows in order, first (with their
-    moments and statistics), at the array's capacity. (While its boxes are
-    pooled, the JAX Trainer pads every box to the largest box's capacity;
-    the padding rows are invalid, so they render nothing.)"""
+    Each box field keeps its rows at the array's capacity, the valid ones
+    first, each part in order (with their moments and statistics; a field
+    whose valid rows lead is taken as it is). (While its boxes are pooled,
+    the JAX Trainer pads every box to the largest box's capacity; the
+    padding rows are invalid, so they render nothing.)"""
     dev = resolve_device(device)
 
-    def rows(valid, cap):
-        idx = np.nonzero(np.asarray(valid, bool))[0]
+    def rows(valid):
+        # a stable partition: the valid rows, then the others, each in order
+        # (the identity when the valid rows already lead)
+        v = np.asarray(valid, bool)
+        idx = np.concatenate([np.nonzero(v)[0], np.nonzero(~v)[0]])
 
         def take(x):
-            x = np.asarray(x)
-            out = np.zeros((cap,) + x.shape[1:], x.dtype)
-            out[:len(idx)] = x[idx]
-            return out
+            return np.asarray(x)[idx]
 
         return take
 
     out = {k: {} for k in BOX_STATE_KEYS}
     for inst, f in arrays["box_fields"].items():
-        take = rows(f["valid"], len(f["valid"]))
+        take = rows(f["valid"])
         out["box_fields"][inst] = field_from_numpy(
             {k: take(f[k]) for k in FIELD_KEYS}, device=dev)
         o = arrays["box_opts"][inst]
@@ -200,6 +203,54 @@ def box_state_to_numpy(trainer) -> dict:
         "frame_delta_opts": {k: tensor_adam_to_numpy(o)
                              for k, o in trainer.frame_delta_opts.items()},
     }
+
+
+def _as_dict(x) -> dict:
+    """A record's leaves by name: a dict as it is, a dataclass's fields
+    (the JAX package's records), a NamedTuple's."""
+    if isinstance(x, dict):
+        return x
+    if dataclasses.is_dataclass(x):
+        return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    if hasattr(x, "_asdict"):
+        return x._asdict()
+    raise TypeError(f"not a record: {type(x).__name__}")
+
+
+def _adam_dict(o) -> dict:
+    o = _as_dict(o)
+    return {"mu": _as_dict(o["mu"]), "nu": _as_dict(o["nu"]),
+            "count": o["count"]}
+
+
+def checkpoint_from_numpy(tree: dict, device=None) -> dict:
+    """A Trainer checkpoint tree -> {"state": the port's TrainState, and
+    `box_state_from_numpy`'s keys}, which `train.Trainer.restore` takes.
+
+    The tree is the JAX Trainer's `_checkpoint_tree()` (numpy leaves, its
+    records as they are, or as dicts after an orbax restore) or the port's
+    own (CPU tensors, as `Trainer.save_checkpoint` writes it): "state"
+    {field, opt {mu, nu, count}, stats, step}; "boxes" {str(instance):
+    {field, opt, stats}}; "deltas" {"<frame>_<instance>": {deltas, opt}}.
+    The moments' `valid` entries are not read."""
+    st = _as_dict(tree["state"])
+    state = train_state_from_numpy(
+        {"field": _as_dict(st["field"]), "opt": _adam_dict(st["opt"]),
+         "stats": _as_dict(st["stats"]), "step": st["step"]}, device=device)
+    boxes = {k: {} for k in BOX_STATE_KEYS}
+    for key, b in (tree.get("boxes") or {}).items():
+        b = _as_dict(b)
+        inst = int(key)
+        boxes["box_fields"][inst] = _as_dict(b["field"])
+        boxes["box_opts"][inst] = _adam_dict(b["opt"])
+        boxes["box_stats"][inst] = _as_dict(b["stats"])
+    for key, d in (tree.get("deltas") or {}).items():
+        d = _as_dict(d)
+        frame, inst = key.rsplit("_", 1)
+        k = (int(frame), int(inst))
+        boxes["frame_deltas"][k] = _as_dict(d["deltas"])
+        boxes["frame_delta_opts"][k] = _adam_dict(d["opt"])
+    return {"state": state, **box_state_from_numpy(boxes, device=device)}
 
 
 def config_from_dict(d: dict) -> config_lib.VegsConfig:

@@ -9,7 +9,10 @@ card, sets the pace -- for a kernel of a few tens of microseconds behind a
 Python wrapper, or a stage that launches hundreds of small kernels. They
 take the place of the JAX tools' in-jit `fori_loop` differencing
 (perf/micro3_r02.py:33-48, perf/r09_refscale.py:41-56), which worked around
-a remote TPU's dispatch latency.
+a remote TPU's dispatch latency. Where the profiler records no device
+operation at all (on an H100, late in a long process, it has come back
+empty window after window), `queued_ms` reads the card's time from CUDA
+events instead, with the stream held busy while the host queues the calls.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 PROFILE_TRIES = 3
 PROFILE_ITERS = 10  # calls in each profiling window
+QUEUE_TRIES = 3  # sleeps, each twice as long as the last, in `queued_ms`
 # the two times come from different windows of calls, so allow some noise
 DEVICE_OVER_STREAM = 1.25
 
@@ -46,13 +50,16 @@ def device_profile(fn, iters: int = PROFILE_ITERS, top: int = 3) -> dict:
     """The card's time per call of `fn` under torch.profiler: "device_ms",
     the summed durations of its device operations (kernels, copies, sets;
     one stream, so they do not overlap); "device_ops", their number per
-    call; "top", the `top` operations by device ms per call.
+    call; "top", the `top` operations by device ms per call;
+    "device_source", "profiler".
 
     The profiler runs two windows of `iters` calls and reads the second:
     the first warms it up (in a window opened cold, an H100 run missed 3 of
     20 launches of a one-kernel call). A window that records no device
-    operation is taken again, up to `PROFILE_TRIES` in all (one such window
-    came back empty on an H100); then it raises."""
+    operation is taken again, up to `PROFILE_TRIES` in all; after that the
+    time is `queued_ms`'s, "device_ops" None, "top" empty and
+    "device_source" "queued_events"; or, where `fn` waits on the card and
+    the host sets the pace, `cuda_ms`'s stream time, "stream_events"."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(PROFILE_TRIES):
@@ -78,12 +85,65 @@ def device_profile(fn, iters: int = PROFILE_ITERS, top: int = 3) -> dict:
         if count:
             break
     else:
-        raise RuntimeError(f"the profiler recorded no device time in "
-                           f"{PROFILE_TRIES} windows")
+        try:
+            ms, source = queued_ms(fn, iters), "queued_events"
+        except HostPaced:
+            ms, source = cuda_ms(fn, iters), "stream_events"
+        return {"device_ms": ms, "device_ops": None, "top": {},
+                "device_source": source}
     lead = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"device_ms": sum(by_name.values()) / 1e3 / iters,
             "device_ops": count / iters,
-            "top": {k: v / 1e3 / iters for k, v in lead}}
+            "top": {k: v / 1e3 / iters for k, v in lead},
+            "device_source": "profiler"}
+
+
+class HostPaced(RuntimeError):
+    """`queued_ms` could not keep the stream busy: the calls wait on the
+    card."""
+
+
+def queued_ms(fn, iters: int = PROFILE_ITERS, warmup: int = 3) -> float:
+    """The card's ms per call of `fn` without the host's gaps, from CUDA
+    events alone: a sleep kernel (`torch.cuda._sleep`) holds the stream
+    while the host queues the start event, `iters` calls and the end
+    event, so the calls run back to back. The sleep must outlast the
+    host's queueing, measured from just before the sleep is queued; a
+    sleep that did not is taken again, twice as long, up to `QUEUE_TRIES`
+    in all. Raises `HostPaced` if none did: then `fn` waits on the card
+    itself (a host read, a synchronize) and the host sets the pace."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    a, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    s.record()
+    s.synchronize()
+    cycles_per_ms = 10 ** 7 / a.elapsed_time(s)
+    sleep_ms = 2 * host_ms + 1.0
+    for _ in range(QUEUE_TRIES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        queued = (time.perf_counter() - t0) * 1e3
+        e.synchronize()
+        if a.elapsed_time(s) > queued:
+            return s.elapsed_time(e) / iters
+        sleep_ms *= 2
+    raise HostPaced(f"the host queued {iters} calls more slowly than a "
+                       f"{sleep_ms / 2:.3f} ms sleep ran: the calls wait on "
+                       f"the card")
 
 
 def measure(fn, device: torch.device, iters: int = 20,

@@ -1,14 +1,15 @@
 """Scene: cameras + the static Gaussian field + one canonical-space field
-per dynamic instance (port of vegs_tpu/scene/__init__.py; the dataset
-loaders wait for a later slice).
+per dynamic instance (port of vegs_tpu/scene/__init__.py).
 
 Weights-only PLY snapshots in the reference's attribute layout: a PLY
 written by the JAX package's `save_gaussian_ply` loads here unchanged, and
-the other way round. A Scene is built from a given SceneInfo, with the
-fields of a trained iteration (`save` writes them: the static PLY and one
-per instance), or seeded: the static field from the SceneInfo's point
-cloud (`create_from_points`), each box field from its instance's points
-mapped into the canonical box (`initialize_box_field`).
+the other way round. A Scene reads its dataset by `cfg_model.data_type`
+(`kitti360`, `colmap` or `blender`, through `sceneLoadTypeCallbacks`) or
+takes a given SceneInfo; its fields are those of a trained iteration
+(`save` writes them: the static PLY and one per instance), or seeded: the
+static field from the SceneInfo's point cloud (`create_from_points`), each
+box field from its instance's points mapped into the canonical box
+(`initialize_box_field`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from .. import gaussians, resolve_device
 from ..gaussians import GaussianField
 from . import ply_io
 from .cameras import Camera
-from .dataset_readers import SceneInfo, camera_from_info
+from .dataset_readers import (SceneInfo, camera_from_info,
+                              sceneLoadTypeCallbacks)
 
 GAUSSIAN_PLY_COMMENT = "vegs_tpu gaussian field"
 
@@ -127,36 +129,48 @@ def box_matrix(box) -> np.ndarray:
 
 
 class Scene:
-    """Cameras of a SceneInfo, the static field and the box fields
-    (`box_gaussians`, {instance: GaussianField}): those of a trained
-    iteration (`model_path/point_cloud/iteration_<i>/point_cloud.ply` and
+    """Cameras of a scene, the static field and the box fields
+    (`box_gaussians`, {instance: GaussianField}), as the JAX Scene takes
+    them: `cfg_model` (config.ModelParams: model_path, source_path,
+    data_type, eval, images, white_background, resolution, preload_image),
+    `cfg_data` (config.KITTI360DataParams, for kitti360) and `cfg_box`
+    (config.BoxModelParams: the box fields' initial opacity, 0.1 without
+    it). The dataset is read unless `scene_info` is given.
+
+    With `load_iteration=None` the fields are seeded from the SceneInfo's
+    point clouds; otherwise they are those of a trained iteration
+    (`model_path/point_cloud/iteration_<i>/point_cloud.ply` and
     `model_path/instance_<id>/point_cloud/iteration_<i>/point_cloud.ply`;
-    -1 = latest), or with `load_iteration=None` seeded from the SceneInfo's
-    point clouds (box fields at `initialize_box_field`'s opacity 0.1, the
-    default of `config.BoxModelParams.gaussian_box_model_init_opacity`)."""
+    -1 = the latest). The fields live on `device` (default: the card)."""
 
     def __init__(
         self,
-        model_path,
-        scene_info: SceneInfo,
-        load_iteration: Optional[int] = -1,
+        cfg_model,
+        cfg_data=None,
+        cfg_box=None,
+        load_iteration: Optional[int] = None,
         shuffle: bool = True,
-        preload_image: bool = False,
-        resolution: int = -1,
+        scene_info: Optional[SceneInfo] = None,
+        preload_image: Optional[bool] = None,
         device=None,
     ):
-        self.model_path = str(model_path)
+        self.model_path = str(cfg_model.model_path)
         self.device = resolve_device(device)
+        preload = (cfg_model.preload_image if preload_image is None
+                   else preload_image)
+        if scene_info is None:
+            scene_info = _read_scene(cfg_model, cfg_data, preload)
         self.scene_info = scene_info
         if shuffle:
             random.shuffle(scene_info.train_cameras)
         self.cameras_extent = scene_info.nerf_normalization["radius"]
+        res = getattr(cfg_model, "resolution", -1)
         self.train_cameras = [
-            camera_from_info(c, preload=preload_image, resolution=resolution)
+            camera_from_info(c, preload=preload, resolution=res)
             for c in scene_info.train_cameras
         ]
         self.test_cameras = [
-            camera_from_info(c, preload=preload_image, resolution=resolution)
+            camera_from_info(c, preload=preload, resolution=res)
             for c in scene_info.test_cameras
         ]
         self.train_bboxes = scene_info.train_bboxes
@@ -167,6 +181,8 @@ class Scene:
             pcd = scene_info.point_cloud
             self.gaussians = gaussians.create_from_points(
                 pcd.points, pcd.colors, device=self.device)
+            init_op = (cfg_box.gaussian_box_model_init_opacity if cfg_box
+                       else 0.1)
             # every frame's annotations, train and test (a new dict: the
             # train split's records are left as they are)
             all_bboxes = {f: dict(d) for f, d in self.train_bboxes.items()}
@@ -175,7 +191,7 @@ class Scene:
             self.box_gaussians = {
                 inst: initialize_box_field(
                     scene_info.dyn_point_cloud, inst, all_bboxes,
-                    device=self.device)
+                    init_opacity=init_op, device=self.device)
                 for inst in self.instances_info}
         else:
             self.loaded_iter = self._resolve_iteration(load_iteration)
@@ -216,3 +232,23 @@ class Scene:
 
     def getTestCameras(self) -> list[Camera]:
         return self.test_cameras
+
+
+def _read_scene(cfg_model, cfg_data, preload: bool) -> SceneInfo:
+    """The SceneInfo of `cfg_model.data_type`'s reader."""
+    dt = cfg_model.data_type
+    if dt == "kitti360":
+        return sceneLoadTypeCallbacks["KITTI360"](
+            cfg_model.source_path, eval=cfg_model.eval, seq=cfg_data.seq,
+            start_frame=cfg_data.start_frame, end_frame=cfg_data.end_frame,
+            preload_image=preload, exclude_lidar=cfg_data.exclude_lidar,
+            exclude_colmap=cfg_data.exclude_colmap,
+            colmap_data_type=cfg_data.colmap_data_type,
+            cache_dir=cfg_model.cache_dir)
+    if dt == "colmap":
+        return sceneLoadTypeCallbacks["Colmap"](
+            cfg_model.source_path, cfg_model.images, cfg_model.eval)
+    if dt == "blender":
+        return sceneLoadTypeCallbacks["Blender"](
+            cfg_model.source_path, cfg_model.white_background, cfg_model.eval)
+    raise ValueError(f"unknown data_type {dt}")

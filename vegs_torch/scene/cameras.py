@@ -1,9 +1,14 @@
-"""Host-side camera objects (port of vegs_tpu/scene/cameras.py, subset).
+"""Host-side camera objects and view augmentation (port of
+vegs_tpu/scene/cameras.py).
 
 All pose math is numpy on the host; `device_params(device)` produces the
-port's CameraParams. Images and normal maps are those held in memory; lazy
-loading from disk (PIL) and the random diffusion-guidance augmentation wait
-for later slices.
+port's CameraParams. A camera holds its image and normal map in memory, or
+loads them from disk on each read (`original_image`, `original_normal`):
+images with PIL (imported on first read), normal maps with `np.load`, and
+OpenCV imported only to resize a normal map whose size differs from the
+camera's. `augment_camera` is the random extrapolated view
+of diffusion guidance, `make_camera_like_input_camera` its deterministic
+eval/video form.
 """
 
 from __future__ import annotations
@@ -19,6 +24,38 @@ from ..ops.projection import CameraParams
 
 ZFAR = 100.0
 ZNEAR = 0.01
+
+
+def _load_image(path: str, size_wh=None) -> np.ndarray:
+    """An image as [3, H, W] float32 in [0, 1] (gray repeated, alpha
+    dropped, a palette expanded to RGB), resized with PIL's LANCZOS to
+    `size_wh` (W, H) if it differs."""
+    from PIL import Image
+
+    img = Image.open(path)
+    if img.mode == "P":
+        img = img.convert("RGB")
+    if size_wh is not None and img.size != tuple(size_wh):
+        img = img.resize(tuple(size_wh), Image.LANCZOS)
+    img = np.asarray(img, dtype=np.float32) / 255.0
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, -1)
+    return np.clip(img[..., :3].transpose(2, 0, 1), 0.0, 1.0)  # [3, H, W]
+
+
+def _load_normal(path: str, size_wh) -> np.ndarray:
+    """A *_norm.npy omnidata normal map ([3, h, w] or [h, w, 3]) as [3, H,
+    W] float32, resized bilinearly by OpenCV to `size_wh` (W, H) if it
+    differs (cv2 imported only then)."""
+    n = np.load(path).astype(np.float32)
+    if n.shape[0] == 3:
+        n = n.transpose(1, 2, 0)
+    w, h = size_wh
+    if (n.shape[1], n.shape[0]) != (w, h):
+        import cv2
+
+        n = cv2.resize(n, (w, h), interpolation=cv2.INTER_LINEAR)
+    return n.transpose(2, 0, 1)
 
 
 def resolve_resolution(orig_w: int, orig_h: int, resolution: int = -1,
@@ -85,18 +122,23 @@ class Camera:
 
     @property
     def original_image(self) -> np.ndarray:
-        if self.image is None:
-            raise NotImplementedError(
-                f"camera {self.image_name!r} holds no image; loading images "
-                "from disk is not ported yet")
-        return self.image
+        """The image in memory, or read from `image_path` at the camera's
+        (possibly policy-downscaled) size."""
+        if self.image is not None:
+            return self.image
+        return _load_image(self.image_path,
+                           (self.image_width, self.image_height))
 
     @property
     def original_normal(self) -> Optional[np.ndarray]:
-        if self.normal is None and self.normal_path:
-            raise NotImplementedError("loading normal maps from disk is not "
-                                      "ported yet")
-        return self.normal
+        """The normal map in memory, or read from `normal_path` (None
+        without either)."""
+        if self.normal is not None:
+            return self.normal
+        if not self.normal_path:
+            return None
+        return _load_normal(self.normal_path,
+                            (self.image_width, self.image_height))
 
     def world_normal(self) -> Optional[np.ndarray]:
         """Camera-space prior normals rotated to world space (None without
@@ -121,6 +163,19 @@ class Camera:
             tan_fovy=f32(np.tan(self.FoVy * 0.5)),
             height=int(self.image_height),
             width=int(self.image_width),
+        )
+
+    def resized(self, image_size: int) -> "Camera":
+        """The camera scaled so that its height is `image_size` (intrinsics
+        with it; no pixels held)."""
+        r = image_size / self.image_height
+        return dataclasses.replace(
+            self,
+            K=self.K * r,
+            image=None,
+            normal=None,
+            image_height=int(image_size),
+            image_width=int(r * self.image_width),
         )
 
 
@@ -150,6 +205,35 @@ def _rot_z(deg: float) -> np.ndarray:
     return np.array([[np.cos(p), -np.sin(p), 0],
                      [np.sin(p), np.cos(p), 0],
                      [0, 0, 1]])
+
+
+def augment_camera(cam: Camera, cfg_sd, rng: np.random.Generator,
+                   eval: bool = False):
+    """Random extrapolated view for diffusion guidance: a yaw about the
+    world z-axis (left or right), a downward pitch in the camera frame and
+    a rise along world z, drawn from `rng` in `cfg_sd`'s ranges (its eval
+    values with `eval=True`), then resized to cfg_sd.sd_image_size.
+    Returns (camera, yaw_deg, pitch_deg, t_z, yaw_dir)."""
+    c2w = _c2w(cam)
+    if eval:
+        yaw_deg = cfg_sd.yaw_eval
+        pitch_deg = cfg_sd.pitch_eval
+        t_z = cfg_sd.trans_z_eval
+        yaw_dir = None
+    else:
+        yaw_dir = int(rng.choice([1, -1]))
+        yaw_deg = yaw_dir * rng.uniform(cfg_sd.yaw_start, cfg_sd.yaw_end)
+        pitch_deg = -1 * rng.uniform(cfg_sd.pitch_start, cfg_sd.pitch_end)
+        t_z = rng.uniform(0, cfg_sd.trans_z_range)
+
+    c2w = c2w.copy()
+    c2w[:3, :3] = c2w[:3, :3] @ _rot_x(pitch_deg)   # pitch in camera frame
+    c2w[:3, :3] = _rot_z(yaw_deg) @ c2w[:3, :3]     # yaw in world frame
+    c2w[2, 3] += t_z                                # rise along world z
+
+    aug = _rebuild(cam, c2w)
+    aug = aug.resized(cfg_sd.sd_image_size)
+    return aug, yaw_deg, pitch_deg, t_z, yaw_dir
 
 
 def make_camera_like_input_camera(cam: Camera, add_xrot_val: float = 0,

@@ -22,20 +22,31 @@ padded slots (for one jitted shape and a donated device buffer) serves
 JAX's compilation, not the contract. `Trainer.init_from_normals` is the normal-prior
 covariance init a run takes before its first step.
 
-Not ported yet: diffusion guidance and the perceptual term, data
-parallelism, checkpoints, the CLI (`main`).
+Checkpoints (`save_checkpoint`, `load_checkpoint`) hold the JAX Trainer's
+tree leaf for leaf, written with `torch.save` to
+`model_path/checkpoints/<it>/checkpoint.pt`; a JAX tree converts with
+`convert.checkpoint_from_numpy`. `main` is the training CLI (`python -m
+vegs_torch.train`, the JAX CLI's flags): read the scene, the normal init,
+train, report, save PLYs and checkpoints, resume.
+
+Not ported yet: diffusion guidance and the perceptual term (a set
+`VEGS_SD_CHECKPOINT` raises), and data parallelism (`--data_parallel`
+resolving to more than one device raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import boxmodel, densify, optim, resolve_device
+from . import boxmodel, convert, densify, optim, resolve_device
 from .boxmodel import BoxDeltas
 from .config import VegsConfig
 from .gaussians import DensifyStats, GaussianField
@@ -45,6 +56,8 @@ from .ops.rasterize import RasterizeConfig, RasterOut
 from .render import (BoxInstance, _bounds, _box_arrays, _concat_arrays, _run,
                      field_arrays, render_all)
 from .scene import Scene, box_matrix
+
+CHECKPOINT_FILE = "checkpoint.pt"
 
 
 @dataclasses.dataclass
@@ -445,12 +458,123 @@ class Trainer:
             res["ssim"] = float(np.mean(ssims))
         return res
 
+    # -- checkpoints ----------------------------------------------------------
+    def _checkpoint_tree(self) -> dict:
+        """The JAX Trainer's checkpoint tree with the same keys and leaf
+        names, as CPU tensors: the static field, its Adam state (the
+        moments carry the field's `valid`, as the JAX moments do), stats
+        and step; each box instance's field, Adam state and stats under
+        str(instance); each (frame, instance) residual and its Adam state
+        under "<frame>_<instance>". No RNG state and no adaptive capacity
+        is saved (the JAX package saves neither)."""
+        def cpu(t):
+            return t.detach().to("cpu", copy=True)
+
+        def field(f):
+            return {k: cpu(getattr(f, k)) for k in convert.FIELD_KEYS}
+
+        def adam(o, f):
+            valid = cpu(f.valid)
+            return {**{m: {**{k: cpu(o[m][k]) for k in optim.PARAM_LEAVES},
+                           "valid": valid} for m in ("mu", "nu")},
+                    "count": cpu(o["count"])}
+
+        def stats(st):
+            return {k: cpu(getattr(st, k)) for k in convert.STATS_KEYS}
+
+        def tensor_adam(o):
+            return {"mu": {k: cpu(v) for k, v in o.mu.items()},
+                    "nu": {k: cpu(v) for k, v in o.nu.items()},
+                    "count": cpu(o.count)}
+
+        st = self.state
+        return {
+            "state": {"field": field(st.field), "opt": adam(st.opt, st.field),
+                      "stats": stats(st.stats),
+                      "step": torch.tensor(int(st.step), dtype=torch.int32)},
+            "boxes": {str(k): {"field": field(f),
+                               "opt": adam(self.box_opts[k], f),
+                               "stats": stats(self.box_stats[k])}
+                      for k, f in self.box_fields.items()},
+            "deltas": {f"{fr}_{i}": {
+                "deltas": {k: cpu(v) for k, v in d.as_dict().items()},
+                "opt": tensor_adam(self.frame_delta_opts[(fr, i)])}
+                for (fr, i), d in self.frame_deltas.items()},
+        }
+
+    def checkpoint_path(self, it: int) -> Path:
+        return (Path(self.cfg.model.model_path).resolve() / "checkpoints"
+                / f"{it}" / CHECKPOINT_FILE)
+
+    def save_checkpoint(self, it: int) -> None:
+        path = self.checkpoint_path(it)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(".tmp")
+        torch.save(self._checkpoint_tree(), tmp)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, it: int) -> None:
+        """Resume from `save_checkpoint(it)`'s file."""
+        tree = torch.load(self.checkpoint_path(it), map_location="cpu",
+                          weights_only=True)
+        self.restore(convert.checkpoint_from_numpy(tree, device=self.device))
+
+    def restore(self, ckpt: dict) -> None:
+        """Take a checkpoint's state (`convert.checkpoint_from_numpy`): the
+        static state, and the box fields, Adam states, stats and residuals
+        it holds (instances it does not hold keep theirs)."""
+        self.state = ckpt["state"]
+        self.scene.gaussians = self.state.field
+        for name in convert.BOX_STATE_KEYS:
+            getattr(self, name).update(ckpt[name])
+
+    # -- reporting and the loop ------------------------------------------------
+    @torch.no_grad()
+    def training_report(self, it: int, out_dir=None) -> dict:
+        """The held-out split's PSNR and L1 (`evaluate`) and, with
+        `out_dir`, the first test camera (train, without a test split) at
+        the fixed extrapolations of `render_video.DEFAULT_AUG_PARAMS`, with
+        its frame's boxes: `iter_<it>/aug_<i>.png` and the covariance-axis
+        picture `iter_<it>/rotaxis_<i>.png`, written with PIL. The scene
+        renders the Trainer's current fields."""
+        from .render_video import (DEFAULT_AUG_PARAMS, render_novelview_image,
+                                   render_novelview_rotaxis)
+
+        report = {"iter": it, **{f"test_{k}": v
+                                 for k, v in self.evaluate().items()}}
+        if out_dir:
+            from PIL import Image
+
+            cams = self.scene.getTestCameras() or self.scene.getTrainCameras()
+            cam = cams[0]
+            boxes = self._frame_boxes(getattr(cam, "frame", 0))
+            base = Path(out_dir) / f"iter_{it}"
+            base.mkdir(parents=True, exist_ok=True)
+            self.scene.gaussians = self.state.field
+            self.scene.box_gaussians.update(self.box_fields)
+            cfg = self.raster_cfg._replace(forward_only=True)
+            for ai, aug in enumerate(DEFAULT_AUG_PARAMS):
+                img = render_novelview_image(self.scene, cam, boxes, cfg,
+                                             self.bg, aug)
+                Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)
+                                ).save(base / f"aug_{ai}.png")
+                Image.fromarray(render_novelview_rotaxis(
+                    self.scene, cam, boxes, cfg, self.bg, aug)
+                ).save(base / f"rotaxis_{ai}.png")
+        return report
+
     def train(self, iterations: Optional[int] = None, log_every: int = 50,
               eval_every: int = 0, logger=None) -> list[dict]:
         """Iterations 1..`iterations` (default cfg.opt.iterations); every
-        `log_every` the metrics go to `metrics_log` (and `logger.log(m,
-        step=it)` when a logger is given)."""
+        `log_every` the metrics go to `metrics_log` and to `logger.log(m,
+        step=it)` (default, when the config has a model_path: a
+        `MetricsLogger` there, with the config saved as `cfg_args.json`)."""
         total = iterations or self.cfg.opt.iterations
+        if logger is None and self.cfg.model.model_path:
+            from .utils.logging import MetricsLogger
+
+            logger = MetricsLogger(self.cfg.model.model_path)
+            self.cfg.save(Path(self.cfg.model.model_path) / "cfg_args.json")
         t0 = time.time()
         for it in range(1, total + 1):
             m = self.train_iteration(it)
@@ -469,3 +593,99 @@ class Trainer:
                     if logger:
                         logger.log(rec, step=it)
         return self.metrics_log
+
+
+def main(argv=None, device=None) -> Trainer:
+    """The training CLI, with the JAX CLI's flags: the config groups'
+    flags (`config.parse_config`) and --test_iterations,
+    --save_iterations, --checkpoint_iterations, --start_checkpoint,
+    --iterations_override and --data_parallel. Seeds and timestamps stdout
+    (`safe_state`), reads the scene, runs the normal-prior init, resumes
+    from --start_checkpoint, trains to the last iteration (logging every
+    50th to `model_path/metrics.jsonl`), reports at --test_iterations
+    (`model_path/results`), saves PLYs at --save_iterations and at the end
+    and checkpoints at --checkpoint_iterations. Returns the Trainer.
+
+    Runs on `device` (default: the card). Not ported, and refused rather
+    than skipped: data parallelism over more than one device and
+    multi-host runs (ROADMAP item 17), diffusion guidance from a set
+    `VEGS_SD_CHECKPOINT` (item 15). `model_path` defaults to the working
+    directory, and the KITTI-360 reader writes its point cache to
+    `./.cache`, as the JAX CLI does."""
+    import argparse
+
+    from .config import parse_config
+    from .utils.general import safe_state
+    from .utils.logging import MetricsLogger
+
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--test_iterations", nargs="+", type=int,
+                    default=[7_000, 30_000])
+    ap.add_argument("--save_iterations", nargs="+", type=int,
+                    default=[30_000, 100_000])
+    ap.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    ap.add_argument("--start_checkpoint", type=int, default=None)
+    ap.add_argument("--iterations_override", type=int, default=None)
+    ap.add_argument("--data_parallel", type=int, default=0,
+                    help="camera-batch data parallelism: 0 = all local "
+                         "devices, 1 = single device, N = first N devices")
+    ap.add_argument("--coordinator_address", type=str, default=None)
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    extra, rest = ap.parse_known_args(argv)
+
+    cfg = parse_config(rest)
+    dev = resolve_device(device)
+    n_local = torch.cuda.device_count() if dev.type == "cuda" else 1
+    dp = extra.data_parallel if extra.data_parallel > 0 else n_local
+    if extra.coordinator_address or (extra.num_processes or 1) > 1:
+        raise NotImplementedError("multi-host training is not ported yet "
+                                  "(ROADMAP item 17)")
+    if dp > 1:
+        raise NotImplementedError(
+            f"--data_parallel resolves to {dp} devices; data parallelism is "
+            "not ported yet (ROADMAP item 17): pass --data_parallel 1")
+    if os.environ.get("VEGS_SD_CHECKPOINT"):
+        raise NotImplementedError(
+            "VEGS_SD_CHECKPOINT is set, but diffusion guidance is not ported "
+            "yet (ROADMAP item 15); unset it to train without guidance")
+    safe_state(seed=cfg.model.seed)
+
+    scene = Scene(cfg.model, cfg.data, cfg.box, device=dev)
+    trainer = Trainer(cfg, scene, rng_seed=cfg.model.seed, device=dev)
+    trainer.init_from_normals()
+    if extra.start_checkpoint is not None:
+        trainer.load_checkpoint(extra.start_checkpoint)
+
+    total = extra.iterations_override or cfg.opt.iterations
+    start = int(trainer.state.step)
+    logger = MetricsLogger(cfg.model.model_path)
+    cfg.save(Path(cfg.model.model_path) / "cfg_args.json")
+    t0 = time.time()
+    for it in range(start + 1, total + 1):
+        m = trainer.train_iteration(it)
+        if it % 50 == 0:
+            m.update(iter=it, elapsed_s=round(time.time() - t0, 1),
+                     n_active=int(trainer.state.field.num_active()))
+            logger.log(m, step=it)
+        if it in extra.test_iterations:
+            logger.log(trainer.training_report(
+                it, out_dir=Path(cfg.model.model_path) / "results"), step=it)
+        if it in extra.save_iterations:
+            _save(trainer, it)
+        if it in extra.checkpoint_iterations:
+            trainer.save_checkpoint(it)
+    _save(trainer, total)
+    logger.close()
+    return trainer
+
+
+def _save(trainer: Trainer, it: int) -> None:
+    """The Trainer's current fields into its scene, written as PLYs."""
+    trainer.scene.gaussians = trainer.state.field
+    trainer.scene.box_gaussians.update(trainer.box_fields)
+    trainer.scene.save(it)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,7 +1,9 @@
 """Synthetic street scenes (numpy copy of vegs_tpu/utils/synthetic.py): a
 camera arc, a seeded point sampling of the scene, a tiny ray tracer for
 ground-truth images and normal maps, the moving "vehicle" box of the
-dynamic-object oracle, and a smooth synthetic normal map.
+dynamic-object oracle, and a smooth synthetic normal map. Beside them, a
+writer of a KITTI-360 directory in the on-disk layout the readers take
+(`write_kitti360_segment`), for tests and smoke runs that need a dataset.
 
 The ray tracer shares no code or representation with the Gaussian
 rasterizer: a checkerboard ground plane, lambertian boxes and a sky
@@ -11,9 +13,13 @@ reproducing itself.
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
 
-from ..scene.dataset_readers import CameraInfo, fov2focal
+from ..scene import ply_io
+from ..scene.dataset_readers import CameraInfo, fov2focal, storePly
 
 SUN = np.array([0.45, 0.8, 0.35])
 SKY_TOP = np.array([0.45, 0.62, 0.90])
@@ -289,3 +295,125 @@ def unit_normal_map(H: int, W: int, seed: int = 0) -> np.ndarray:
     nz = -np.ones_like(x)
     n = np.stack([nx, ny, nz]).astype(np.float32)
     return n / np.linalg.norm(n, axis=0, keepdims=True)
+
+
+# ---------------------------------------------------------------------------
+# A KITTI-360 directory on disk
+# ---------------------------------------------------------------------------
+
+
+def kitti360_frame_paths(root, seq: str, cam: int, frame: int):
+    """(image PNG, normal map .npy) paths of a camera's frame, where the
+    KITTI-360 reader looks for them."""
+    name = f"{int(frame):010d}"
+    return (os.path.join(root, "data_2d_raw", seq, f"image_{cam:02d}",
+                         "data_rect", name + ".png"),
+            os.path.join(root, "data_2d_normal_omnidata_all", seq,
+                         f"image_{cam:02d}", name + "_norm.npy"))
+
+
+def _row(values) -> str:
+    return " ".join(repr(float(v)) for v in np.ravel(values))
+
+
+def _box_xml(name: str, gid: int, frame: int, box2world) -> str:
+    sem, inst = divmod(int(gid), 1000)
+    return (f"  <{name}>\n    <semanticId>{sem}</semanticId>\n"
+            f"    <instanceId>{inst}</instanceId>\n"
+            f"    <timestamp>{int(frame)}</timestamp>\n"
+            f"    <label>car</label>\n"
+            f"    <transform type_id=\"opencv-matrix\">\n"
+            f"      <rows>4</rows><cols>4</cols><dt>f</dt>\n"
+            f"      <data>{_row(box2world)}</data>\n"
+            f"    </transform>\n  </{name}>\n")
+
+
+def write_kitti360_segment(root, seq: str, start_frame: int, end_frame: int,
+                           K: np.ndarray, width: int, height: int,
+                           cam0_to_world: dict, baseline: float,
+                           static: tuple, colmap: tuple, dynamic: tuple,
+                           boxes: dict) -> None:
+    """Write a KITTI-360 segment the readers take, images and normal maps
+    aside (`kitti360_frame_paths` says where they go):
+
+      calibration/perspective.txt        P_rect_0x from K, R_rect = I,
+                                         S_rect = width height;
+      calibration/calib_cam_to_pose.txt  image_00 at the pose, image_01
+                                         `baseline` along its x axis;
+      data_poses/<seq>/poses.txt         {frame: camera 0's [4, 4]
+                                         camera-to-world} (`cam0_to_world`);
+      data_3d_semantics/train/<seq>/static/<segment>.ply
+                                         static = (xyz, rgb uint8, visible);
+      data_3d_colmap_processed/train/<seq>/static/<segment>/points3D.ply
+                                         colmap = (xyz, rgb uint8);
+      data_3d_semantics/train/<seq>/dynamic/<segment>.ply
+                                         dynamic = (xyz, rgb uint8, global
+                                         instance id, frame, semantic id,
+                                         visible);
+      data_3d_bboxes/train/<seq>.xml     boxes = {frame: {global id
+                                         (semantic * 1000 + instance):
+                                         box-to-world [4, 4]}}.
+
+    Every float is written exactly (repr), so the readers get the values
+    given."""
+    root = Path(root)
+    seg = f"{int(start_frame):010d}_{int(end_frame):010d}"
+    calib = root / "calibration"
+    calib.mkdir(parents=True, exist_ok=True)
+    P = np.zeros((3, 4))
+    P[:, :3] = K
+    lines = []
+    for cam in ("00", "01"):
+        lines += [f"P_rect_{cam}: {_row(P)}", f"R_rect_{cam}: {_row(np.eye(3))}",
+                  f"S_rect_{cam}: {int(width)} {int(height)}"]
+    (calib / "perspective.txt").write_text("\n".join(lines) + "\n")
+    right = np.eye(4)[:3]
+    right[0, 3] = baseline
+    (calib / "calib_cam_to_pose.txt").write_text(
+        f"image_00: {_row(np.eye(4)[:3])}\nimage_01: {_row(right)}\n")
+    poses = root / "data_poses" / seq
+    poses.mkdir(parents=True, exist_ok=True)
+    (poses / "poses.txt").write_text("".join(
+        f"{int(f)} {_row(np.asarray(m)[:3])}\n"
+        for f, m in sorted(cam0_to_world.items())))
+
+    sem_dir = root / "data_3d_semantics" / "train" / seq
+    xyz, rgb, visible = static
+    (sem_dir / "static").mkdir(parents=True, exist_ok=True)
+    ply_io.write_ply(sem_dir / "static" / f"{seg}.ply",
+                     ply_io.make_vertex_array({
+                         "x": xyz[:, 0].astype(np.float32),
+                         "y": xyz[:, 1].astype(np.float32),
+                         "z": xyz[:, 2].astype(np.float32),
+                         "red": rgb[:, 0].astype(np.uint8),
+                         "green": rgb[:, 1].astype(np.uint8),
+                         "blue": rgb[:, 2].astype(np.uint8),
+                         "visible": np.asarray(visible, np.uint8)}))
+    cxyz, crgb = colmap
+    cdir = (root / "data_3d_colmap_processed" / "train" / seq / "static"
+            / seg)
+    cdir.mkdir(parents=True, exist_ok=True)
+    storePly(str(cdir / "points3D.ply"), cxyz, crgb)
+    dxyz, drgb, dinst, dframe, dsem, dvis = dynamic
+    (sem_dir / "dynamic").mkdir(parents=True, exist_ok=True)
+    ply_io.write_ply(sem_dir / "dynamic" / f"{seg}.ply",
+                     ply_io.make_vertex_array({
+                         "x": dxyz[:, 0].astype(np.float32),
+                         "y": dxyz[:, 1].astype(np.float32),
+                         "z": dxyz[:, 2].astype(np.float32),
+                         "red": drgb[:, 0].astype(np.uint8),
+                         "green": drgb[:, 1].astype(np.uint8),
+                         "blue": drgb[:, 2].astype(np.uint8),
+                         "semantic": np.asarray(dsem, np.int32),
+                         "instance": np.asarray(dinst, np.int32),
+                         "visible": np.asarray(dvis, np.uint8),
+                         "timestamp": np.asarray(dframe, np.int32)}))
+    bdir = root / "data_3d_bboxes" / "train"
+    bdir.mkdir(parents=True, exist_ok=True)
+    objs = [(gid, f, m) for f, d in sorted(boxes.items())
+            for gid, m in sorted(d.items())]
+    (bdir / f"{seq}.xml").write_text(
+        "<?xml version=\"1.0\"?>\n<opencv_storage>\n"
+        + "".join(_box_xml(f"object_{i}", gid, f, m)
+                  for i, (gid, f, m) in enumerate(objs))
+        + "</opencv_storage>\n")
