@@ -120,8 +120,45 @@ Phases, one JSON line each; any failure exits non-zero:
                  load, init, report and checkpoint times and sizes
                  (cli_run); the host's ms to read a frame and its normal
                  map (cli_frame_read); the launches of both runs (cli);
- 12. perf     -- the measurement path (`vegs_torch.perf`), after the
-                 cli phase's tensors are freed: M1 (block sum) and M2
+ 12. guide    -- the diffusion-guided training step at full width, after
+                 the cli phase's tensors are freed: the seeded
+                 2,233,571-Gaussian field and 3 street cameras at 376x1408
+                 as in the train phase (ground truth from the field, sh_dc
+                 + 0.35, synthetic normal maps); SD-2.1-base's UNet (LoRA
+                 rank 4, fresh) and the SD VAE at their published widths,
+                 random weights from seed 0, random text embeddings [2, 77,
+                 1024]; VGG16's features, random (the perceptual term on);
+                 `sd_image_size` 512 (augmented views 512x1917); capacities
+                 from a probe over the training views and the augmented
+                 views the steps will draw (the Trainer's rng replayed on a
+                 copy), need + 5% (guide_setup); 8 score-matching steps
+                 (3001-3008), then 4 SDS steps (3009-3012), with PyTorch's
+                 default TF32 settings, the launch counters reset just
+                 before: K1-K4 exactly twice a step (the main and the
+                 augmented render; M1 and M2 counted too), finite losses (guidance and perceptual
+                 too), no instance dropped in either render, ms per step
+                 by mode, the augmented views' raw and padded need, peak
+                 memory (guide); a profile of 2 more SDS steps with the
+                 device ms by scope -- the augmented render, the VAE
+                 encoder, the UNet's CFG forward, VGG16, each forward and
+                 backward (guide_profile); the SDS loss of one more
+                 augmented crop alone, its gradient with respect to the
+                 field finite, non-zero on some rows and zero on every row
+                 the augmented view does not see (guide_grad_alone); K4
+                 and K1 against their plain versions on that 512x1917
+                 view, and K2 and K3 on the backward of that view's
+                 guidance loss (aug_kernel_inputs), held as in phase 8;
+                 then one guided SDS step's gradients through the kernels
+                 on the card against the plain versions on the CPU
+                 (128x512, 50k Gaussians, `sd_image_size` 64, the tiny
+                 diffusion stack carried across with `convert`, the draws
+                 replayed, TF32 off; f32 and bf16 aux), with the control
+                 the card's CFG orientation flipped, and VGG16's
+                 perceptual loss and image gradient on the card against
+                 the CPU, with the control its last feature layer left
+                 out (guide_grad_check);
+ 13. perf     -- the measurement path (`vegs_torch.perf`), after the
+                 guide phase's tensors are freed: M1 (block sum) and M2
                  (transpose) against their plain versions at the probes'
                  full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
                  both layouts), with card, plain, library times and
@@ -131,9 +168,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
- 13. the kernels summary line (launches: the train phase's; launches_boxes:
-     the boxes phase's; launches_cli: the cli phase's), then the card line,
-     then the last line
+ 14. the kernels summary line (launches: the train phase's; launches_boxes:
+     the boxes phase's; launches_cli: the cli phase's; launches_guide: the
+     guide phase's), then the card line, then the last line
      {"ok": true, "device": {...}}.
 
 Tolerances: K4 counts must agree (a tile may differ only by exactly one
@@ -172,7 +209,16 @@ on an H100 against the float32 plain version's 7.4e-3; control: the
 kernel's output 1% off there (1.4e-2). M2 must be bit-identical to its
 plain version. M1: |d| <= 1e-8 * (sum of |x|) -- the kernel and its plain
 version add in other orders; the sound readings on an H100 are at most
-1.3e-10; control: the sum with the last 2^17-long block left out.
+1.3e-10; control: the sum with the last 2^17-long block left out. The
+guided step's gradients, card against CPU: relative L2 error <= 1e-4 per
+field leaf (the kernels against their plain versions, cuDNN's convolutions
+against the CPU's) with f32 aux, <= 1e-3 with bf16 aux (one bf16 step on
+every colour row reads 3.9e-3 or more); control: the card's CFG
+orientation flipped. VGG16's image gradient, card against CPU: relative L2
+error <= 1e-2 (a ReLU mask or a max-pool choice flips where two float32
+runs differ in the last bits; the CPU parity tests read 1.0e-4 between JAX
+and torch, an H100 read 1.16e-3); control: the card's loss without its
+last feature layer.
 """
 
 from __future__ import annotations
@@ -383,9 +429,10 @@ KERNEL_GROUPS = (("K1 blend_fwd", ("blend_fwd_kernel",)),
                  ("copy", ("Memcpy", "memcpy", "Memset", "memset")))
 
 
-def profile_frames(fn) -> dict:
+def profile_frames(fn, by_scope: bool = False) -> dict:
     """Device time by kernel group and the device's busy share of the wall
-    time of `fn` (torch.profiler's CUDA kernel events)."""
+    time of `fn` (torch.profiler's CUDA kernel events); with `by_scope`,
+    the device time by the guided step's scopes too (`scope_split`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -395,7 +442,9 @@ def profile_frames(fn) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, groups, by_name = [], {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # (the GUIDE_SCOPES ranges also show on the device's timeline)
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name in GUIDE_SCOPES):
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -412,10 +461,60 @@ def profile_frames(fn) -> dict:
             busy += end - last
             last = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": (1 - busy / wall_us) if spans else None,
-            "kernels": len(spans), "ms_by_group": groups,
-            "top_kernels_ms": dict(top)}
+    res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": (1 - busy / wall_us) if spans else None,
+           "kernels": len(spans), "ms_by_group": groups,
+           "top_kernels_ms": dict(top)}
+    if by_scope:
+        res["ms_by_scope"] = scope_split(prof)
+        res["ms_by_scope"]["kernels not linked to an op"] = (
+            sum(groups.values()) - sum(res["ms_by_scope"].values()))
+    return res
+
+
+# the scopes of a guided step (`vegs_torch.train.guidance_loss`,
+# `losses.sd_guidance`, `losses.perceptual`)
+GUIDE_SCOPES = ("vegs::aug_render", "vegs::vae_encode", "vegs::unet_cfg",
+                "vegs::vgg_perceptual")
+
+
+def scope_split(prof, time_us=None) -> dict:
+    """ms by scope of a profile: each op's own kernels (`time_us`, default
+    their device time) go to the innermost GUIDE_SCOPES range around it in
+    the forward, or, in the backward, to the range of the forward op whose
+    autograd node it evaluates (the profiler's sequence numbers); all else
+    to "rest of the step" (the main render, its loss and backward, Adam)."""
+    if time_us is None:
+        def time_us(e):
+            return sum(k.duration for k in e.kernels
+                       if k.name not in GUIDE_SCOPES)
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def scope(e):
+        while e is not None:
+            if e.name in GUIDE_SCOPES:
+                return e.name, "fwd"
+            if (e.name.startswith("autograd::engine::evaluate_function")
+                    and e.sequence_nr in forward):
+                return forward[e.sequence_nr], "bwd"
+            e = e.cpu_parent
+        return None, None
+
+    forward = {}
+    for e in cpu:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            name, way = scope(e)
+            if way == "fwd":
+                forward.setdefault(e.sequence_nr, name)
+    out = {}
+    for e in cpu:
+        us = time_us(e)
+        if us:
+            name, way = scope(e)
+            key = f"{name} {way}" if name else "rest of the step"
+            out[key] = out.get(key, 0.0) + us / 1e3
+    return out
 
 
 def slot_tiles(tile_starts, k, grid):
@@ -499,6 +598,44 @@ def step_kernel_inputs(trainer, cam, it, dev):
     k3_args = (dpf, dpa, st.binned.order, ends)
     torch.cuda.synchronize()
     return k2_args, k3_args, st, float(loss.detach())
+
+
+def aug_kernel_inputs(field, guided, iteration, sh_degree, bg, raster_cfg):
+    """K2's and K3's inputs of a guided step's augmented render: the static
+    field staged at the augmented camera without a means2d tap, blended and
+    cropped as `train.guidance_loss` does, the guidance loss of the crop at
+    `iteration`, its gradient at the blend's padded output (K2's dout), and
+    K3's cotangents from K2's output on them. Returns (K2 args, K3 args,
+    the `Staged`)."""
+    from vegs_torch.ops import blend_cuda
+    from vegs_torch.ops.blend_cuda import BlendFn
+    from vegs_torch.ops.rasterize import raster_out, stage
+    from vegs_torch.render import field_arrays
+
+    a = field_arrays(field, sh_degree)
+    cam = guided.cam
+    st = stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
+               sh_degree=3, valid=a.valid, means2d_offset=None,
+               config=raster_cfg)
+    if st.sat_counts is None:
+        raise AssertionError("the augmented render should run the sat cull")
+    g = st.grid
+    out_p = BlendFn.apply(st.payload_f32, st.payload_aux,
+                          st.binned.tile_starts, g, g.padded_height,
+                          g.padded_width)
+    rgb = raster_out(st, out_p[:, :cam.height, :cam.width], bg).rgb
+    h, w = rgb.shape[1:]
+    s = min(max(int(guided.crop_start), 0), w - h)
+    loss = guided.guidance(rgb[:, :, s:s + h], iteration,
+                           generator=guided.generator)
+    (dout,) = torch.autograd.grad(loss, out_p)
+    k2_args = (st.payload_f32.detach(), st.payload_aux.detach(),
+               st.binned.tile_starts, out_p.detach(), dout.contiguous(), g)
+    dpf, dpa = blend_cuda.blend_bwd(*k2_args)
+    ends = torch.cat([st.binned.gauss_ends, st.binned.gauss_ends[-1:]])
+    k3_args = (dpf, dpa, st.binned.order, ends)
+    torch.cuda.synchronize()
+    return k2_args, k3_args, st
 
 
 def k2_readings(kern, ref, tile_starts, grid, keep, ulp):
@@ -1165,18 +1302,23 @@ def train_phase(scene, dev, card) -> dict:
 
 def sized_config(field, cams_augs, device, boxes_of=None,
                  probe_cap=PROBE_CAP):
-    """Probe every view at a generous capacity and size k_cap/k_pad by the
-    largest need + 5% (as bench.py does), with the sat cull on. With
+    """Probe every view (a camera, or its CameraParams) at a generous
+    capacity and size k_cap/k_pad by the largest need + 5% (as bench.py
+    does), with the sat cull on. With
     `boxes_of` (camera -> its frame's `BoxInstance`s) the boxes are
     rendered with the field, as `render_all` does."""
     from vegs_torch.ops.rasterize import RasterizeConfig
+
+    from vegs_torch.ops.projection import CameraParams
 
     probe = RasterizeConfig(k_cap=probe_cap, k_pad=probe_cap, sat_cull=True,
                             forward_only=True)
     need_raw = need_pad = 0
     for cam in cams_augs:
         boxes = boxes_of(cam) if boxes_of else ()
-        st = field_stage(field, cam.device_params(device), probe, boxes)
+        params = (cam if isinstance(cam, CameraParams)
+                  else cam.device_params(device))
+        st = field_stage(field, params, probe, boxes)
         total = int(st.rb.total)
         if total > probe_cap:
             raise AssertionError(f"probe capacity {probe_cap} < need {total}")
@@ -1187,11 +1329,17 @@ def sized_config(field, cams_augs, device, boxes_of=None,
 
 
 def write_field_ply(path: Path, n: int, seed: int) -> None:
-    """A seeded synthetic trained field (SH degree 3) placed like bench.py:
-    depth in [2, 60], x/y filling the 376x1408 frustum (fovx 1.2, fovy 0.4)
-    so that nearly every Gaussian is visible."""
-    from vegs_torch import gaussians
+    """`synthetic_field(n, seed)` written as a PLY."""
     from vegs_torch.scene import save_gaussian_ply
+
+    save_gaussian_ply(path, synthetic_field(n, seed))
+
+
+def synthetic_field(n: int, seed: int):
+    """A seeded synthetic trained field (SH degree 3, on the CPU) placed
+    like bench.py: depth in [2, 60], x/y filling the 376x1408 frustum (fovx
+    1.2, fovy 0.4) so that nearly every Gaussian is visible."""
+    from vegs_torch import gaussians
 
     rng = np.random.default_rng(seed)
     z = rng.uniform(2.0, 60.0, n).astype(np.float32)
@@ -1204,9 +1352,8 @@ def write_field_ply(path: Path, n: int, seed: int) -> None:
     opac = np.log(op / (1 - op)).astype(np.float32)
     f_dc = rng.uniform(-1.0, 1.5, (n, 3)).astype(np.float32)
     f_rest = rng.normal(0, 0.12, (n, 45)).astype(np.float32)
-    field = gaussians.from_ply_arrays(xyz, f_dc, f_rest, opac, scale, rot,
-                                      device="cpu")
-    save_gaussian_ply(path, field)
+    return gaussians.from_ply_arrays(xyz, f_dc, f_rest, opac, scale, rot,
+                                     device="cpu")
 
 
 def box_poses(n_frames=3):
@@ -1932,6 +2079,416 @@ def cli_phase(dev, card) -> dict:
             "launches": launches}
 
 
+# The guide phase: the diffusion-guided step at full width. The window is
+# open over iterations 3001-3014: 8 score-matching steps (3001-3008), 4 SDS
+# steps (3009-3012), then 2 SDS steps under the profiler (3013-3014).
+GUIDE_FIRST_IT, GUIDE_SM_STEPS, GUIDE_SDS_STEPS = 3001, 8, 4
+GUIDE_PROFILED = 2
+GUIDE_WINDOW = (3000, 3015)        # start < it < end, and the annealing's
+GUIDE_CAMS = (0, 1, 2, 0, 1, 2, 1, 0, 2, 1, 0, 2, 1, 2, 0)
+SD_IMAGE_SIZE = 512                # the augmented views: 512x1917
+GUIDE_GRAD_RTOL = 1e-4             # the reduced check, per field leaf
+# the same with the main path's bf16 aux: one bf16 step (2^-8 to 2^-7 of a
+# value) on every colour row reads 3.9e-3 or more, so 1e-3 fails such an
+# error and passes rounding flips on a few rows (sound reading on an H100
+# 1.18e-4; the flipped-CFG control 0.13)
+GUIDE_GRAD_RTOL_BF16 = 1e-3
+# VGG16's image gradient, card against CPU: set from the first sound
+# reading on an H100, 1.16e-3 (a ReLU mask or a max-pool choice flips);
+# control: the card's loss without its last feature layer
+VGG_GRAD_RTOL = 1e-2
+
+
+def sd_models(dev, seed=SEED):
+    """Stable-Diffusion-2.1-base's UNet (LoRA rank 4 on every attention
+    projection, fresh: up-projections zero) and the SD VAE at their
+    published widths, random weights from `seed`, and random text
+    embeddings [2, 77, 1024] (prompt, negative prompt)."""
+    import dataclasses
+
+    from vegs_torch.diffusion.pipeline import DiffusionModels
+    from vegs_torch.diffusion.scheduler import DiffusionSchedule
+    from vegs_torch.diffusion.unet import UNetConfig, init_unet
+    from vegs_torch.diffusion.vae import VAEConfig, init_vae
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ucfg = dataclasses.replace(UNetConfig.sd21(), lora_rank=4)
+    unet = init_unet(g, ucfg)
+    vae = init_vae(g, VAEConfig.sd())
+    text = torch.randn((2, 77, ucfg.cross_attention_dim), generator=g,
+                       device=dev)
+    return DiffusionModels(unet=unet, vae=vae,
+                           schedule=DiffusionSchedule.scaled_linear(device=dev),
+                           text_embeddings=text)
+
+
+def guide_grad_check(dev, n=50_000, seed=SEED) -> dict:
+    """One guided SDS step's gradients through the kernels on the card
+    against the plain versions on the CPU, on a reduced scene: 128x512
+    with 50k Gaussians, `sd_image_size` 64 (the augmented view 64x256, a
+    64x64 crop), the tiny diffusion stack (its LoRA up-projections
+    non-zero) carried across with `convert`, the draws replayed (on the
+    step's `GuidedView`), TF32 off. The relative L2 error of each field
+    leaf, and of the control: the card with the CFG orientation flipped.
+    With f32 aux payloads, and with the main path's bf16 aux, each with
+    its control: there each Gaussian's colour cotangent sum is rounded to
+    bf16 once, and in the small augmented view most Gaussians have one or
+    two instances, so a float32 difference in K2's order moves some rows
+    to the neighbouring bf16 value (as the grad phase's box colour rows).
+    Then VGG16's perceptual loss and its image gradient on the card
+    against the CPU (random features), with the control the card's loss
+    without its last feature layer."""
+    import dataclasses
+
+    from vegs_torch import convert, optim
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.diffusion.pipeline import DiffusionModels
+    from vegs_torch.gaussians import DensifyStats
+    from vegs_torch.losses import vgg
+    from vegs_torch.losses.perceptual import vgg_perceptual_loss
+    from vegs_torch.losses.sd_guidance import SDGuidance
+    from vegs_torch.ops.rasterize import RasterizeConfig
+    from vegs_torch.scene.cameras import augment_camera
+    from vegs_torch.scene.dataset_readers import camera_from_info
+    from vegs_torch.train import GuidedView, TrainState, train_step
+    from vegs_torch.utils.synthetic import street_camera_infos
+
+    h, w, size = 128, 512, 64
+    cam = camera_from_info(street_camera_infos(1, h, w, fovx=1.2,
+                                               fovy=0.4)[0])
+    sd = VegsConfig().sd
+    sd.sd_image_size = size
+    aug = augment_camera(cam, sd, np.random.default_rng(seed + 19))[0]
+    crop_start = (aug.image_width - aug.image_height) // 2
+    arrays = convert.field_to_numpy(synthetic_field(n, seed + 13))
+    g = torch.Generator()
+    g.manual_seed(seed + 23)
+    tiny = DiffusionModels.tiny(g, lora_rank=4)
+    with torch.no_grad():
+        for name, p in tiny.unet.named_parameters():
+            if "lora_up" in name:
+                p.normal_(0.0, 0.05, generator=g)
+    trees = (convert.module_to_flax(tiny.unet),
+             dataclasses.asdict(tiny.unet.config),
+             convert.module_to_flax(tiny.vae),
+             dataclasses.asdict(tiny.vae.config), tiny.schedule.betas.numpy(),
+             tiny.schedule.alphas_cumprod.numpy(),
+             tiny.text_embeddings.numpy())
+    lat = (1, 4, size // 2, size // 2)
+    draws = {"eps": torch.randn(lat, generator=g), "t": torch.tensor([40]),
+             "noise": torch.randn(lat, generator=g)}
+    gt = torch.rand((3, h, w), generator=g)
+    opt = VegsConfig().opt
+    grads, metrics, times = {}, {}, {}
+    cpu = torch.device("cpu")
+    runs = (("card", dev, True, "f32"), ("control", dev, False, "f32"),
+            ("plain", cpu, True, "f32"), ("card_bf16", dev, True, "bf16"),
+            ("control_bf16", dev, False, "bf16"),
+            ("plain_bf16", cpu, True, "bf16"))
+    for run, d, orient, aux in runs:
+        guidance = SDGuidance(
+            convert.diffusion_models_from_flax(*trees, device=d),
+            guidance_mode="sds", start_iter=0, max_iters=100,
+            reference_cfg_orientation=orient)
+        field = convert.field_from_numpy(arrays, device=d)
+        st = TrainState(field=field, opt=optim.adam_init(field),
+                        stats=DensifyStats.zeros(field.capacity, d), step=10)
+        t0 = time.perf_counter()
+        _, m, _ = train_step(
+            st, cam.device_params(d), gt.to(d), torch.zeros_like(gt).to(d),
+            0.0, 3, torch.zeros(3, device=d), opt_cfg=opt,
+            raster_cfg=RasterizeConfig(k_cap=1 << 21, k_pad=1 << 21,
+                                       payload_dtype=aux),
+            spatial_scale=1.0,
+            guidance=GuidedView(guidance, aug.device_params(d), crop_start,
+                                draws={k: v.to(d) for k, v in draws.items()}))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        times[run] = time.perf_counter() - t0
+        metrics[run] = {k: float(v) for k, v in m.items()}
+        if metrics[run]["num_dropped"] or metrics[run]["aug_num_dropped"]:
+            raise AssertionError(f"the guided check drops instances: {m}")
+        grads[run] = {k: getattr(field, k).grad.cpu()
+                      for k in optim.PARAM_LEAVES}
+    errs = {"card": {}, "control": {}, "card_bf16": {}, "control_bf16": {}}
+    for run in errs:
+        for k, got in grads[run].items():
+            ref = grads["plain_bf16" if run.endswith("bf16") else "plain"][k]
+            if not torch.isfinite(got).all() or float(ref.norm()) == 0:
+                raise AssertionError(f"guided gradient {k}: not finite or 0")
+            errs[run][k] = float((got - ref).norm() / ref.norm())
+
+    # VGG16's perceptual term, card against CPU, on the plain run's render
+    feats = vgg.init_params(torch.Generator().manual_seed(seed + 29))
+    pred = torch.rand((3, h, w), generator=g)
+    vgg_res = {}
+    for run, d, layers in (("card", dev, (0, 1, 2, 3)),
+                           ("control", dev, (0, 1, 2)),
+                           ("plain", cpu, (0, 1, 2, 3))):
+        model = convert.vgg_from_flax(convert.module_to_flax(feats), device=d)
+        x = pred.to(d, copy=True).requires_grad_(True)
+        loss = vgg_perceptual_loss(model, x, gt.to(d), feature_layers=layers)
+        loss.backward()
+        vgg_res[run] = (float(loss.detach()), x.grad.cpu())
+    vgg_loss_err = abs(vgg_res["card"][0] / vgg_res["plain"][0] - 1)
+    vgg_grad_err, vgg_ctl_err = (
+        float((vgg_res[run][1] - vgg_res["plain"][1]).norm()
+              / vgg_res["plain"][1].norm()) for run in ("card", "control"))
+    return {"scene": f"{h}x{w}, {n} Gaussians; augmented view "
+                     f"{aug.image_height}x{aug.image_width}, crop from "
+                     f"column {crop_start}; tiny diffusion stack, LoRA 4; "
+                     "SDS, t = 40; TF32 off; f32 aux, then bf16 aux",
+            "rel_l2_err": errs["card"], "reading": max(errs["card"].values()),
+            "bf16_aux_rel_l2_err": errs["card_bf16"],
+            "bf16_aux_reading": max(errs["card_bf16"].values()),
+            "bf16_aux_control_rel_l2_err": errs["control_bf16"],
+            "bf16_aux_control_reading": max(errs["control_bf16"].values()),
+            "control": "the card's CFG orientation flipped",
+            "control_rel_l2_err": errs["control"],
+            "control_reading": max(errs["control"].values()),
+            "guidance_loss": {r: m["guidance_loss"] for r, m in metrics.items()},
+            "loss": {r: m["loss"] for r, m in metrics.items()},
+            "vgg_loss_rel_err": vgg_loss_err, "vgg_grad_rel_l2_err": vgg_grad_err,
+            "vgg_control": "the card's loss without its last feature layer",
+            "vgg_control_grad_rel_l2_err": vgg_ctl_err,
+            "card_s": times["card"], "plain_cpu_s": times["plain"]}
+
+
+def guide_phase(dev, card) -> dict:
+    """The diffusion-guided training step at full width (see phase 12)."""
+    from vegs_torch import optim
+    from vegs_torch.config import ModelParams, VegsConfig
+    from vegs_torch.losses.sd_guidance import build_guidance
+    from vegs_torch.render import render
+    from vegs_torch.scene import Scene
+    from vegs_torch.scene.dataset_readers import SceneInfo, getNerfppNorm
+    from vegs_torch.train import Trainer, guidance_loss
+    from vegs_torch.utils.synthetic import street_camera_infos, unit_normal_map
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as model_dir:
+        write_field_ply(Path(model_dir) / "point_cloud" / "iteration_1"
+                        / "point_cloud.ply", N_REF, SEED)
+        infos = street_camera_infos(3, H, W, fovx=1.2, fovy=0.4)
+        info = SceneInfo(point_cloud=None, train_cameras=infos, test_cameras=[],
+                         nerf_normalization=getNerfppNorm(infos), ply_path="")
+        scene = Scene(ModelParams(model_path=model_dir), scene_info=info,
+                      load_iteration=-1, shuffle=False, device=dev)
+    cams = scene.getTrainCameras()
+    with torch.inference_mode():
+        cfg_train, need_raw, need_pad = sized_config(
+            scene.gaussians, cams, dev, probe_cap=BOX_PROBE_CAP)
+        for i, cam in enumerate(cams):  # ground truth: the unperturbed field
+            out = render(cam, scene.gaussians,
+                         config=cfg_train._replace(forward_only=True))
+            cam.image = torch.clamp(out.rgb, 0, 1).cpu().numpy()
+            cam.normal = unit_normal_map(H, W, seed=i)
+    with torch.no_grad():
+        scene.gaussians.sh_dc += 0.35
+    t_models = time.perf_counter()
+    models = sd_models(dev)
+    torch.cuda.synchronize()
+    models_s = time.perf_counter() - t_models
+    n_unet = sum(p.numel() for p in models.unet.parameters())
+    n_lora = sum(p.numel() for k, p in models.unet.named_parameters()
+                 if "lora_" in k)
+    n_vae = sum(p.numel() for p in models.vae.parameters())
+    tcfg = VegsConfig()
+    tcfg.sd.sd_image_size = SD_IMAGE_SIZE
+    tcfg.sd.perceptual_loss = True
+    tcfg.sd.start_guiding_from_iter, tcfg.sd.end_guiding_at_iter = GUIDE_WINDOW
+    guidance = build_guidance(tcfg.sd, models=models,
+                              max_iters=GUIDE_WINDOW[1])
+    trainer = Trainer(tcfg, scene, raster_cfg=cfg_train, device=dev,
+                      sd_guidance=guidance)
+    # the step counter a run reaching iteration 3001 has (the guidance
+    # anneals its timestep by it, as the JAX step does)
+    trainer.state.step = GUIDE_FIRST_IT - 1
+    n_vgg = sum(p.numel() for p in trainer._vgg.parameters())
+    # the augmented views the steps will draw (the Trainer's rng, replayed
+    # on a copy): capacities for the training and the augmented views
+    import copy
+
+    rng = copy.deepcopy(trainer.rng)
+    views = [trainer._step_extras(GUIDE_FIRST_IT, cams[ci])[0]
+             for ci in GUIDE_CAMS]
+    trainer.rng = rng
+    n_steps = GUIDE_SM_STEPS + GUIDE_SDS_STEPS
+    its = range(GUIDE_FIRST_IT, GUIDE_FIRST_IT + n_steps + GUIDE_PROFILED)
+    with torch.inference_mode():
+        cfg_aug, aug_raw, aug_pad = sized_config(
+            scene.gaussians, [v.cam for v in views], dev,
+            probe_cap=BOX_PROBE_CAP)
+    cfg = cfg_train._replace(k_cap=max(cfg_train.k_cap, cfg_aug.k_cap),
+                             k_pad=max(cfg_train.k_pad, cfg_aug.k_pad))
+    trainer.raster_cfg = cfg
+    aug_hw = (views[0].cam.height, views[0].cam.width)
+    setup_s = time.perf_counter() - t0
+    emit("guide_setup", card=card, n=N_REF, aug_view=list(aug_hw),
+         unet_parameters=n_unet, unet_lora_parameters=n_lora,
+         vae_parameters=n_vae, vgg16_parameters=n_vgg,
+         text_embeddings=list(models.text_embeddings.shape),
+         models_init_s=models_s, k_cap=cfg.k_cap, k_pad=cfg.k_pad,
+         need_raw_train=need_raw, need_pad_train=need_pad,
+         need_raw_aug=aug_raw, need_pad_aug=aug_pad,
+         crop_starts=[v.crop_start for v in views], setup_s=setup_s)
+
+    # the guided steps, with PyTorch's default TF32 settings (as `main`
+    # runs): cuDNN convolutions in TF32, matmuls in full float32
+    tf32 = {"cuda.matmul.allow_tf32": False, "cudnn.allow_tf32": True}
+    torch.backends.cuda.matmul.allow_tf32 = tf32["cuda.matmul.allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = tf32["cudnn.allow_tf32"]
+    from vegs_torch.perf import micro3
+
+    counters = main_counters()
+    off_path = {"M1": micro3.psum_consume, "M2": micro3.transpose}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (*counters.values(), *off_path.values()):
+        c.launches = 0
+    steps = []
+    for j, (it, ci) in enumerate(zip(its[:n_steps], GUIDE_CAMS)):
+        guidance.guidance_mode = "score-matching" if j < GUIDE_SM_STEPS else "sds"
+        before = {k: c.launches for k, c in counters.items()}
+        t1 = time.perf_counter()
+        m = trainer.train_iteration(it, camera=cams[ci])
+        torch.cuda.synchronize()
+        steps.append({"it": it, "cam": ci, "mode": guidance.guidance_mode,
+                      "ms": (time.perf_counter() - t1) * 1e3,
+                      "launches": {k: c.launches - before[k]
+                                   for k, c in counters.items()}, **m})
+    launches = {k: c.launches
+                for k, c in {**counters, **off_path}.items()}
+    if any(launches[k] for k in off_path):
+        raise AssertionError(f"the guided steps launched M1 or M2: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    for st in steps:
+        if any(v != 2 for v in st["launches"].values()):
+            raise AssertionError(f"a guided step did not launch each kernel "
+                                 f"twice: {st}")
+        vals = [st[k] for k in ("loss", "l1", "guidance_loss",
+                                "perceptual_loss")]
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"a guided step's losses: {st}")
+        if st["num_dropped"] or st["aug_num_dropped"]:
+            raise AssertionError(f"a guided step dropped instances: {st}")
+    sm = [st["ms"] for st in steps if st["mode"] == "score-matching"]
+    sds = [st["ms"] for st in steps if st["mode"] == "sds"]
+    res = {"steps": n_steps, "first_it": GUIDE_FIRST_IT, "tf32": tf32,
+           "ms_per_guided_step": float(np.median(sm[1:])),
+           "ms_per_sds_step": float(np.median(sds[1:])),
+           "ms_steps": [st["ms"] for st in steps],
+           "loss": [st["loss"] for st in steps],
+           "guidance_loss": [st["guidance_loss"] for st in steps],
+           "perceptual_loss": [st["perceptual_loss"] for st in steps],
+           "aug_need_raw": [st["aug_num_needed_raw"] for st in steps],
+           "aug_need_pad": [st["aug_num_needed"] for st in steps],
+           "aug_dropped": [st["aug_num_dropped"] for st in steps],
+           "max_memory_allocated": peak, "launches": launches}
+    emit("guide", card=card, **res)
+
+    after = []
+
+    def two_steps():
+        for it, ci in zip(its[n_steps:], GUIDE_CAMS[n_steps:]):
+            after.append(trainer.train_iteration(it, camera=cams[ci]))
+
+    prof = profile_frames(two_steps, by_scope=True)
+    if any(m["num_dropped"] or m["aug_num_dropped"]
+           or not np.isfinite(m["loss"]) for m in after):
+        raise AssertionError(f"profiled guided steps: {after}")
+    emit("guide_profile", card=card, steps=GUIDE_PROFILED, mode="sds",
+         tf32=tf32, **prof)
+    torch.backends.cudnn.allow_tf32 = False  # the checks run without TF32
+
+    # the guidance gradient alone, on the next augmented view
+    guided = trainer._step_extras(GUIDE_FIRST_IT, cams[GUIDE_CAMS[-1]])[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    sds_only = build_guidance(tcfg.sd, models=models,
+                              max_iters=GUIDE_WINDOW[1])
+    sds_only.guidance_mode = "sds"
+    field = trainer.state.field
+    g_loss, aug = guidance_loss(field, guided._replace(guidance=sds_only,
+                                                       generator=gen),
+                                trainer.state.step, 3, trainer.bg,
+                                raster_cfg=cfg, sh_total_degree=3)
+    leaves = [getattr(field, k) for k in optim.PARAM_LEAVES]
+    grads = torch.autograd.grad(g_loss, leaves)
+    rows = torch.zeros(field.capacity, dtype=torch.bool, device=dev)
+    for gr in grads:
+        if not torch.isfinite(gr).all():
+            raise AssertionError("the guidance gradient is not finite")
+        rows |= (gr.reshape(field.capacity, -1) != 0).any(dim=1)
+    unseen = aug.radii == 0
+    grad_alone = {"loss": float(g_loss.detach()), "rows_with_gradient": int(rows.sum()),
+                  "rows_unseen": int(unseen.sum()),
+                  "unseen_rows_with_gradient": int((rows & unseen).sum()),
+                  "aug_dropped": int(aug.num_dropped)}
+    emit("guide_grad_alone", card=card, **grad_alone)
+    if not grad_alone["rows_with_gradient"] or grad_alone["aug_dropped"]:
+        raise AssertionError(f"the guidance gradient alone: {grad_alone}")
+    if grad_alone["unseen_rows_with_gradient"]:
+        raise AssertionError(f"gradient on rows the augmented view does not "
+                             f"see: {grad_alone}")
+    del grads, g_loss
+
+    # K1 and K4 at 512x1917 against their plain versions
+    with torch.inference_mode():
+        st = field_stage(field, guided.cam, cfg._replace(forward_only=True))
+        k4_aug = compare_k4(st)
+        emit("k4_check", scene=f"{aug_hw[0]}x{aug_hw[1]} augmented view, "
+             f"{N_REF:,} Gaussians", card=card, **k4_aug)
+        k1_aug = compare_k1(st)
+        emit("k1_check", scene=f"{aug_hw[0]}x{aug_hw[1]} augmented view, "
+             f"{N_REF:,} Gaussians", aux="bf16", card=card, **k1_aug)
+    del st
+
+    # K2 and K3 on the backward of that view's guidance loss
+    gen.manual_seed(SEED + 31)
+    k2_args, k3_args, st = aug_kernel_inputs(
+        field, guided._replace(guidance=sds_only, generator=gen),
+        trainer.state.step, 3, trainer.bg, cfg)
+    scene_aug = (f"{aug_hw[0]}x{aug_hw[1]} augmented view, {N_REF:,} "
+                 "Gaussians, the guidance loss's backward")
+    k2_aug = compare_k2(k2_args)
+    emit("k2_check", scene=scene_aug, aux=str(k2_args[1].dtype), card=card,
+         limit=K2_RTOL, held=K2_SCALE, **k2_aug)
+    for rows, scale in K2_SCALE.items():
+        hold(f"K2 {rows} by {scale}, augmented view",
+             k2_aug[rows]["reading"][scale], K2_RTOL,
+             k2_aug[rows]["control_reading"][scale])
+    if k2_aug["flip_tiles"] > K2_MAX_FLIP_TILES * k2_args[5].num_tiles:
+        raise AssertionError(f"K2 on the augmented view: "
+                             f"{k2_aug['flip_tiles']} stop-flip tiles")
+    k3_aug = compare_k3_fused(k3_args, st)
+    emit("k3_fused", scene=scene_aug, card=card, limit=K3_RTOL, **k3_aug)
+    for rows in ("f32_rows", "aux_rows"):
+        hold(f"K3 fused {rows}, augmented view", k3_aug[rows]["reading"],
+             K3_RTOL, k3_aug[rows]["control_reading"])
+        hold(f"K3 library {rows}, augmented view",
+             k3_aug[rows]["library_reading"], K3_RTOL)
+    del k2_args, k3_args, st
+    del trainer, scene, models, guidance, sds_only, field, aug, views
+    torch.cuda.empty_cache()
+
+    check = guide_grad_check(dev)
+    emit("guide_grad_check", card=card, limit=GUIDE_GRAD_RTOL,
+         bf16_aux_limit=GUIDE_GRAD_RTOL_BF16, vgg_limit=VGG_GRAD_RTOL, **check)
+    hold("guided step gradients, card against CPU", check["reading"],
+         GUIDE_GRAD_RTOL, check["control_reading"])
+    hold("guided step gradients, bf16 aux, card against CPU",
+         check["bf16_aux_reading"], GUIDE_GRAD_RTOL_BF16,
+         check["bf16_aux_control_reading"])
+    hold("VGG16's image gradient, card against CPU",
+         check["vgg_grad_rel_l2_err"], VGG_GRAD_RTOL,
+         check["vgg_control_grad_rel_l2_err"])
+    return {**res, "profile": prof, "grad_alone": grad_alone,
+            "k1_aug": k1_aug, "k4_aug": k4_aug, "k2_aug": k2_aug,
+            "k3_aug": k3_aug, "check": check}
+
+
 def kernel_times(kernel, plain, library) -> dict:
     """The card's own ms per call (torch.profiler: the summed durations of
     the device operations each call launches, without host gaps) of a
@@ -2379,6 +2936,11 @@ def main() -> int:
     cli = cli_phase(dev, card)
     torch.cuda.empty_cache()
 
+    # -- 12. the diffusion-guided training step at full width ---------------
+    guide = guide_phase(dev, card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
     # -- 13. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
 
@@ -2387,7 +2949,8 @@ def main() -> int:
     m1, m2 = perf["M1"], perf["M2"]
     # launches: the static train phase's 8 steps; launches_boxes: the
     # boxes phase's 8 steps; launches_cli: the cli phase's two `main` runs
-    # (24 + 12 steps, their reports)
+    # (24 + 12 steps, their reports); launches_guide: the guide phase's 12
+    # guided steps (two renders each)
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
@@ -2395,7 +2958,8 @@ def main() -> int:
          "replaces": "vegs_tpu/ops/blend_pallas.py:201",
          "launches": launches["K1"],
          "launches_boxes": boxes["launches"]["K1"],
-         "launches_cli": cli["launches"]["K1"], "matches_plain": True,
+         "launches_cli": cli["launches"]["K1"],
+         "launches_guide": guide["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -2407,7 +2971,8 @@ def main() -> int:
          "replaces": "vegs_tpu/ops/blend_pallas.py:274",
          "launches": launches["K2"],
          "launches_boxes": boxes["launches"]["K2"],
-         "launches_cli": cli["launches"]["K2"], "matches_plain": True,
+         "launches_cli": cli["launches"]["K2"],
+         "launches_guide": guide["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -2421,7 +2986,8 @@ def main() -> int:
          "replaces": "vegs_tpu/ops/segreduce.py:46",
          "launches": launches["K3"],
          "launches_boxes": boxes["launches"]["K3"],
-         "launches_cli": cli["launches"]["K3"], "matches_plain": True,
+         "launches_cli": cli["launches"]["K3"],
+         "launches_guide": guide["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
@@ -2437,7 +3003,8 @@ def main() -> int:
          "replaces": "vegs_tpu/ops/satcull.py:65",
          "launches": launches["K4"],
          "launches_boxes": boxes["launches"]["K4"],
-         "launches_cli": cli["launches"]["K4"], "matches_plain": True,
+         "launches_cli": cli["launches"]["K4"],
+         "launches_guide": guide["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
@@ -2448,6 +3015,7 @@ def main() -> int:
          "source": "vegs_torch/csrc/blocksum.cu",
          "replaces": "perf/micro3_r02.py:56",
          "launches": perf["launches"]["M1"], "launched_by": perf_only,
+         "launches_guide": guide["launches"]["M1"],
          "matches_plain": True, "max_abs_err": m1["max_abs_err"],
          "case": f"{m1['dtype']} {m1['layout']}",
          "ms": m1["ms"], "plain_ms": m1["plain_ms"],
@@ -2457,6 +3025,7 @@ def main() -> int:
          "source": "vegs_torch/csrc/transpose.cu",
          "replaces": "perf/micro3_r02.py:107",
          "launches": perf["launches"]["M2"], "launched_by": perf_only,
+         "launches_guide": guide["launches"]["M2"],
          "matches_plain": True, "max_abs_err": m2["max_abs_err"],
          "case": m2["dtype"],
          "ms": m2["ms"], "plain_ms": m2["plain_ms"],

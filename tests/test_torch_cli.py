@@ -20,8 +20,9 @@ against vegs_tpu's.
   * The port resumed from the checkpoint at 3 (--start_checkpoint 3)
     restores every leaf of the checkpoint to the bit and reaches 6.
   * What `main` refuses instead of skipping: --data_parallel resolving to
-    more than one device (ROADMAP item 17), a set VEGS_SD_CHECKPOINT (item
-    15), no card without device="cpu".
+    more than one device (ROADMAP item 17), no card without device="cpu".
+    (A set VEGS_SD_CHECKPOINT now builds diffusion guidance:
+    tests/test_torch_guidance.py.)
   * The JAX report cannot render a KITTI-360 frame with boxes
     (render_video.py:108 takes np.asarray of a Bbox3D record: TypeError),
     so the toy root leaves the test camera's frame without one; the
@@ -215,10 +216,6 @@ def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 17"):
         ttrain.main(argv + ["--coordinator_address", "localhost:1"],
                     device="cpu")
-    monkeypatch.setenv("VEGS_SD_CHECKPOINT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttrain.main(argv, device="cpu")
-    monkeypatch.delenv("VEGS_SD_CHECKPOINT")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ttrain.main(argv)

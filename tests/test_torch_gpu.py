@@ -720,3 +720,64 @@ def test_box_step_grads_kernels_match_plain(cuda, aux):
         err = float((grads["cuda"][k] - ref).norm() / ref.norm())
         print(f"box step gradient {aux} {k}: {err}")
         assert ref.norm() > 0 and err <= GRAD_RTOL, (k, err)
+
+
+def test_guided_step_launches_each_kernel_twice(cuda):
+    """One diffusion-guided training step (SDS, the perceptual term on) on
+    a reduced scene: the main render and the augmented view's render each
+    launch K1-K4 once, and every metric is finite with nothing dropped."""
+    from vegs_torch import gaussians, optim
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.diffusion.pipeline import DiffusionModels
+    from vegs_torch.gaussians import DensifyStats
+    from vegs_torch.losses import vgg
+    from vegs_torch.losses.sd_guidance import SDGuidance
+    from vegs_torch.scene.cameras import augment_camera
+    from vegs_torch.scene.dataset_readers import camera_from_info
+    from vegs_torch.train import GuidedView, Perceptual, TrainState, train_step
+    from vegs_torch.utils.synthetic import street_camera_infos
+
+    rng = np.random.default_rng(5)
+    n = 20_000
+    z = rng.uniform(2.0, 40.0, n).astype(np.float32)
+    xyz = np.stack([z * np.tan(0.6) * rng.uniform(-0.95, 0.95, n),
+                    z * np.tan(0.2) * rng.uniform(-0.95, 0.95, n), z], 1)
+    op = rng.uniform(0.2, 0.95, n)
+    field = gaussians.from_ply_arrays(
+        xyz.astype(np.float32), rng.uniform(-1, 1.5, (n, 3)).astype(np.float32),
+        rng.normal(0, 0.1, (n, 45)).astype(np.float32),
+        np.log(op / (1 - op)).astype(np.float32),
+        np.log(rng.uniform(0.01, 0.08, (n, 3))).astype(np.float32),
+        rng.normal(size=(n, 4)).astype(np.float32), device=cuda)
+    cam = camera_from_info(street_camera_infos(1, 128, 512, fovx=1.2,
+                                               fovy=0.4)[0])
+    cfg = VegsConfig()
+    cfg.sd.sd_image_size = 64
+    aug = augment_camera(cam, cfg.sd, np.random.default_rng(6))[0]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    guidance = SDGuidance(DiffusionModels.tiny(g, lora_rank=4),
+                          guidance_mode="sds", start_iter=0, max_iters=100)
+    counters = {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
+                "K3": segreduce.gather_expand_bwd,
+                "K4": satcull.satcount_gathered}
+    st = TrainState(field=field, opt=optim.adam_init(field),
+                    stats=DensifyStats.zeros(field.capacity, cuda), step=10)
+    gt = torch.rand((3, 128, 512), generator=g, device=cuda)
+    for c in counters.values():
+        c.launches = 0
+    _, m, _ = train_step(
+        st, cam.device_params(cuda), gt, torch.zeros_like(gt), 0.0, 3,
+        torch.zeros(3, device=cuda), opt_cfg=cfg.opt,
+        raster_cfg=RasterizeConfig(k_cap=1 << 20, k_pad=1 << 20,
+                                   sat_cull=True),
+        spatial_scale=1.0,
+        guidance=GuidedView(guidance, aug.device_params(cuda), 10, g),
+        perceptual=Perceptual(vgg.init_params(g).requires_grad_(False), 0.1))
+    torch.cuda.synchronize()
+    assert {k: c.launches for k, c in counters.items()} == dict.fromkeys(
+        counters, 2)
+    m = {k: float(v) for k, v in m.items()}
+    assert all(np.isfinite(v) for v in m.values()), m
+    assert m["num_dropped"] == m["aug_num_dropped"] == 0
+    assert m["guidance_loss"] > 0 and m["perceptual_loss"] > 0

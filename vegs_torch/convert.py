@@ -6,7 +6,10 @@ vegs_tpu GaussianField, TrainState or CameraParams; CPU tensors do too) and
 configs as plain dicts (`dataclasses.asdict`), so this module needs nothing
 from the JAX package. `checkpoint_from_numpy` takes a whole Trainer
 checkpoint tree, the JAX package's or the port's. The PLY snapshot (`vegs_torch.scene.load_gaussian_ply`) is the
-other bridge: a PLY written by the JAX package loads unchanged.
+other bridge: a PLY written by the JAX package loads unchanged. The
+learned modules (the diffusion UNet and VAE, VGG16's features) come from
+the JAX package's Flax parameter trees, as numpy (`unet_from_flax`,
+`vae_from_flax`, `vgg_from_flax`, `diffusion_models_from_flax`).
 """
 
 from __future__ import annotations
@@ -257,3 +260,134 @@ def config_from_dict(d: dict) -> config_lib.VegsConfig:
     """A VegsConfig from `dataclasses.asdict` of the JAX package's (the
     groups and names are the same)."""
     return config_lib.VegsConfig.from_json(json.dumps(d))
+
+
+# -- learned modules: Flax parameter trees <-> torch modules -----------------
+#
+# A Flax tree ({"params": {...}}, numpy leaves) of the JAX package's UNet,
+# VAE or VGG16 maps leaf for leaf onto the port module whose submodules
+# carry the Flax names: path a/b/kernel -> parameter a.b.weight (a
+# convolution's HWIO kernel -> OIHW, a Dense [in, out] kernel -> [out,
+# in]), a/b/scale -> a.b.weight (norms), a/b/bias -> a.b.bias.
+
+
+def _flax_leaves(tree: dict, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flax_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _to_torch_layout(leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "kernel":
+        return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    return a
+
+
+@torch.no_grad()
+def module_from_flax_(module: torch.nn.Module, params: dict) -> torch.nn.Module:
+    """Load a Flax parameter tree (with or without its top "params") into
+    `module` in place. Every parameter must be given, with its shape."""
+    params = params.get("params", params)
+    named = dict(module.named_parameters())
+    seen = set()
+    for path, v in _flax_leaves(params).items():
+        leaf = path[-1]
+        name = ".".join(path[:-1] + ("bias" if leaf == "bias" else "weight",))
+        if name not in named:
+            raise KeyError(f"{'/'.join(path)}: the module has no {name}")
+        a = _to_torch_layout(leaf, np.asarray(v, np.float32))
+        p = named[name]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{'/'.join(path)}: {a.shape} for {name} "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(a, copy=True)))
+        seen.add(name)
+    missing = sorted(set(named) - seen)
+    if missing:
+        raise KeyError(f"the tree lacks {missing[:8]}")
+    return module
+
+
+def module_to_flax(module: torch.nn.Module) -> dict:
+    """Inverse of `module_from_flax_`: {"params": nested numpy dict}."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        *owner, leaf = name.split(".")
+        sub = module.get_submodule(".".join(owner))
+        a = p.detach().cpu().numpy()
+        if leaf == "weight" and isinstance(sub, (torch.nn.GroupNorm,
+                                                 torch.nn.LayerNorm)):
+            leaf = "scale"
+        elif leaf == "weight":
+            leaf, a = "kernel", (a.transpose(2, 3, 1, 0) if a.ndim == 4
+                                 else a.T)
+        node = tree
+        for k in owner:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def _built(factory, device):
+    from .nn_init import empty_module
+
+    return empty_module(factory, resolve_device(device))
+
+
+def _dataclass_from(cls, d):
+    d = _as_dict(d)
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in d.items()})
+
+
+def unet_from_flax(params: dict, config, device=None):
+    """A JAX UNet2DCondition's parameters (with or without LoRA leaves;
+    `config` its UNetConfig or `dataclasses.asdict` of it) -> the port's."""
+    from .diffusion.unet import UNet2DCondition, UNetConfig
+
+    cfg = _dataclass_from(UNetConfig, config)
+    return module_from_flax_(_built(lambda: UNet2DCondition(cfg), device),
+                             params)
+
+
+def vae_from_flax(params: dict, config, device=None):
+    """A JAX AutoencoderKL's parameters -> the port's."""
+    from .diffusion.vae import AutoencoderKL, VAEConfig
+
+    cfg = _dataclass_from(VAEConfig, config)
+    return module_from_flax_(_built(lambda: AutoencoderKL(cfg), device),
+                             params)
+
+
+def vgg_from_flax(params: dict, device=None):
+    """The JAX VGG16Features' parameters -> the port's."""
+    from .losses.vgg import VGG16Features
+
+    return module_from_flax_(_built(VGG16Features, device), params)
+
+
+def diffusion_models_from_flax(unet_params: dict, unet_config, vae_params: dict,
+                               vae_config, betas, alphas_cumprod,
+                               text_embeddings, device=None):
+    """A JAX DiffusionModels, its parts as numpy (the two parameter trees,
+    the two configs, the schedule's arrays, the text embeddings) -> the
+    port's `DiffusionModels`."""
+    from .diffusion.pipeline import DiffusionModels
+    from .diffusion.scheduler import DiffusionSchedule
+
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, np.float32, copy=True)).to(dev)
+
+    return DiffusionModels(
+        unet=unet_from_flax(unet_params, unet_config, dev),
+        vae=vae_from_flax(vae_params, vae_config, dev),
+        schedule=DiffusionSchedule(betas=f32(betas),
+                                   alphas_cumprod=f32(alphas_cumprod),
+                                   num_train_timesteps=len(betas)),
+        text_embeddings=f32(text_embeddings))

@@ -11,8 +11,10 @@ take the place of the JAX tools' in-jit `fori_loop` differencing
 (perf/micro3_r02.py:33-48, perf/r09_refscale.py:41-56), which worked around
 a remote TPU's dispatch latency. Where the profiler records no device
 operation at all (on an H100, late in a long process, it has come back
-empty window after window), `queued_ms` reads the card's time from CUDA
-events instead, with the stream held busy while the host queues the calls.
+empty window after window), or records only part of a window (on an
+H100, one of ten launches of a one-kernel call), `queued_ms` reads the
+card's time from CUDA events instead, with the stream held busy while the
+host queues the calls.
 """
 
 from __future__ import annotations
@@ -55,8 +57,12 @@ def device_profile(fn, iters: int = PROFILE_ITERS, top: int = 3) -> dict:
 
     The profiler runs two windows of `iters` calls and reads the second:
     the first warms it up (in a window opened cold, an H100 run missed 3 of
-    20 launches of a one-kernel call). A window that records no device
-    operation is taken again, up to `PROFILE_TRIES` in all; after that the
+    20 launches of a one-kernel call). Every call on the same inputs
+    launches the same operations, so a window whose count of device
+    operations is not a positive multiple of `iters` has lost some (late
+    in a long process an H100 run recorded 1 of 10 launches, or 16,733
+    operations in a window of 10 calls). Such a window is taken again, up to
+    `PROFILE_TRIES` in all; after that the
     time is `queued_ms`'s, "device_ops" None, "top" empty and
     "device_source" "queued_events"; or, where `fn` waits on the card and
     the host sets the pace, `cuda_ms`'s stream time, "stream_events"."""
@@ -82,7 +88,7 @@ def device_profile(fn, iters: int = PROFILE_ITERS, top: int = 3) -> dict:
             us = e.time_range.end - e.time_range.start
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
             count += 1
-        if count:
+        if count and count % iters == 0:
             break
     else:
         try:

@@ -29,9 +29,19 @@ tree leaf for leaf, written with `torch.save` to
 vegs_torch.train`, the JAX CLI's flags): read the scene, the normal init,
 train, report, save PLYs and checkpoints, resume.
 
-Not ported yet: diffusion guidance and the perceptual term (a set
-`VEGS_SD_CHECKPOINT` raises), and data parallelism (`--data_parallel`
-resolving to more than one device raises).
+Two optional terms join the step's loss before its one backward, as in
+the JAX step (vegs_tpu/train.py:206-228). The VGG perceptual term
+(cfg.sd.perceptual_loss) scores the composite render against the ground
+truth. Inside the guidance window (a `Trainer.sd_guidance`, built by
+`main` from a local Stable-Diffusion checkpoint in $VEGS_SD_CHECKPOINT),
+the static field alone is rendered at a randomly augmented camera, with
+no means2d tap, so the view adds nothing to the densify statistics; a
+square crop of it goes through `losses.sd_guidance.SDGuidance` (the VAE
+encoder's backward carries the diffusion prior's gradient into the
+render).
+
+Not ported yet: data parallelism (`--data_parallel` resolving to more
+than one device raises).
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ import os
 import sys
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -104,6 +114,46 @@ def loss_fn(field: GaussianField, m2d_offset, cam: CameraParams, gt, normal,
     return loss, ll1, nloss, out
 
 
+class GuidedView(NamedTuple):
+    """The guidance term of a step: the guidance (an
+    `losses.sd_guidance.SDGuidance`), the augmented camera, the first
+    column of the square crop, and the generator of the guidance's draws,
+    or the draws themselves (`SDGuidance.draw`'s dict), which then replace
+    the generator's."""
+
+    guidance: object
+    cam: CameraParams
+    crop_start: int
+    generator: Optional[torch.Generator] = None
+    draws: Optional[dict] = None
+
+
+class Perceptual(NamedTuple):
+    """The perceptual term of a step: VGG16's features and the weight."""
+
+    vgg: torch.nn.Module
+    lam: float
+
+
+def guidance_loss(field: GaussianField, guided: GuidedView, iteration: int,
+                  active_sh_degree: int, bg, *, raster_cfg: RasterizeConfig,
+                  sh_total_degree: int = 3):
+    """(loss, RasterOut): the static field rendered at the augmented camera
+    without a means2d tap, its h x h crop from column `crop_start` (clamped
+    into the frame, as `dynamic_slice` clamps), scored by the guidance at
+    `iteration`."""
+    with torch.profiler.record_function("vegs::aug_render"):
+        aug = _run(guided.cam, field_arrays(field, active_sh_degree), bg=bg,
+                   scale_modifier=1.0, override_color=None,
+                   sh_degree=sh_total_degree, config=raster_cfg,
+                   means2d_offset=None)
+    h, w = aug.rgb.shape[1:]
+    s = min(max(int(guided.crop_start), 0), w - h)
+    crop = aug.rgb[:, :, s:s + h]
+    return guided.guidance(crop, iteration, generator=guided.generator,
+                           draws=guided.draws), aug
+
+
 @dataclasses.dataclass
 class BoxStep:
     """One box instance's state in a step: its field and Adam state
@@ -121,11 +171,17 @@ class BoxStep:
 def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
                active_sh_degree: int, bg, *, opt_cfg, raster_cfg: RasterizeConfig,
                spatial_scale: float, sh_total_degree: int = 3, boxes=(),
-               box_cfg=None):
+               box_cfg=None, guidance: Optional[GuidedView] = None,
+               perceptual: Optional[Perceptual] = None):
     """One step -> (state, metrics, boxes). The fields' parameters and Adam
     moments are updated in place; each `BoxStep` of `boxes` comes back with
     new statistics, deltas and delta Adam state (`box_cfg`: boxmodel_lr and
-    boxmodel_lambda_reg). Metrics are 0-d tensors on the field's device."""
+    boxmodel_lambda_reg). With `perceptual`, lam times the VGG perceptual
+    loss of the composite render joins the loss; with `guidance`, the
+    guidance loss of the static field's augmented view at `state.step`
+    (`guidance_loss`). Metrics are 0-d tensors on the field's device; the
+    terms add `perceptual_loss`, and `guidance_loss` with the augmented
+    render's `aug_num_dropped`, `aug_num_needed` and `aug_num_needed_raw`."""
     field = state.field
     fields = [field] + [b.field for b in boxes]
     for f in fields:
@@ -144,6 +200,22 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
         bg, opt_cfg=opt_cfg, raster_cfg=raster_cfg,
         sh_total_degree=sh_total_degree, boxes=insts,
         lambda_reg=box_cfg.boxmodel_lambda_reg if boxes else 0.0)
+    extra = {}
+    if perceptual is not None:
+        from .losses.perceptual import vgg_perceptual_loss
+
+        p_loss = vgg_perceptual_loss(perceptual.vgg, out.rgb, gt)
+        loss = loss + perceptual.lam * p_loss
+        extra["perceptual_loss"] = p_loss.detach()
+    if guidance is not None:
+        g_loss, aug = guidance_loss(
+            field, guidance, state.step, active_sh_degree, bg,
+            raster_cfg=raster_cfg, sh_total_degree=sh_total_degree)
+        loss = loss + g_loss
+        extra.update(guidance_loss=g_loss.detach(),
+                     aug_num_dropped=aug.num_dropped,
+                     aug_num_needed=aug.num_needed,
+                     aug_num_needed_raw=aug.num_needed_raw)
     loss.backward()
 
     def grads_of(f):
@@ -184,6 +256,7 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
         "loss": loss.detach(), "l1": ll1.detach(),
         "normal_loss": nloss.detach(), "num_dropped": out.num_dropped,
         "num_needed": out.num_needed, "num_needed_raw": out.num_needed_raw,
+        **extra,
     }
     return (TrainState(field=field, opt=state.opt, stats=stats,
                        step=state.step + 1), metrics, new_boxes)
@@ -194,7 +267,12 @@ class Trainer:
     """Host-side training of one scene, its static field and its box
     fields, on `device` (default: the card; the scene's fields must live
     there). A step renders at most `max_box_slots` of the frame's
-    instances."""
+    instances. `sd_guidance` (an `SDGuidance`) adds the guidance term
+    inside cfg.sd's window (start_guiding_from_iter < it <
+    end_guiding_at_iter), its draws from `guidance_generator`;
+    cfg.sd.perceptual_loss adds the VGG perceptual term, with the VGG16
+    features from the .npz at $VEGS_VGG_WEIGHTS or a random init (seed
+    0)."""
 
     cfg: VegsConfig
     scene: Scene
@@ -202,6 +280,7 @@ class Trainer:
     max_box_slots: int = 8
     rng_seed: int = 7
     device: object = None
+    sd_guidance: object = None
 
     K_CAP_MIN = 1 << 15            # never shrink below 32k slots
     # Ceiling of both capacities (2^26 slots): the raw stream's per-slot
@@ -225,6 +304,10 @@ class Trainer:
         self.rng = np.random.default_rng(self.rng_seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.rng_seed)
+        # the guidance's draws have their own stream, as the JAX Trainer's
+        # key serves only them
+        self.guidance_generator = torch.Generator(device=self.device)
+        self.guidance_generator.manual_seed(self.rng_seed)
         self.spatial_scale = float(self.scene.cameras_extent)
         self.bg = torch.tensor(
             [1.0, 1.0, 1.0] if cfg.model.white_background else [0.0, 0.0, 0.0],
@@ -247,6 +330,18 @@ class Trainer:
                           for k, v in self.box_fields.items()}
         self.frame_deltas: dict = {}      # (frame, inst) -> BoxDeltas
         self.frame_delta_opts: dict = {}  # (frame, inst) -> TensorAdamState
+        self._vgg = None
+        if cfg.sd.perceptual_loss:
+            from .losses import vgg as vgg_lib
+
+            wpath = os.environ.get("VEGS_VGG_WEIGHTS")
+            if wpath and os.path.exists(wpath):
+                self._vgg = vgg_lib.load_npz(wpath, device=self.device)
+            else:
+                # random features still regularize texture statistics
+                g = torch.Generator(device=self.device)
+                g.manual_seed(0)
+                self._vgg = vgg_lib.init_params(g)
         self.viewpoint_stack = []
         self.metrics_log = []
 
@@ -316,6 +411,35 @@ class Trainer:
             self.raster_cfg = self.raster_cfg._replace(k_pad=k_pad // 2)
             self._kpad_low_streak = 0
 
+    def _step_extras(self, it: int, cam):
+        """(GuidedView or None, Perceptual or None) of iteration `it` on
+        camera `cam`. In the guidance window the augmented camera and the
+        crop's start are drawn from `rng` as the JAX Trainer draws them:
+        `augment_camera`, then the start (in the half the yaw turned
+        toward, unless cfg.sd.global_crop)."""
+        sd = self.cfg.sd
+        guided = None
+        if (self.sd_guidance is not None
+                and sd.start_guiding_from_iter < it < sd.end_guiding_at_iter):
+            from .scene.cameras import augment_camera
+
+            cam_aug, _, _, _, aug_dir = augment_camera(cam, sd, self.rng)
+            span = max(cam_aug.image_width - cam_aug.image_height, 1)
+            if sd.global_crop or aug_dir is None:
+                crop_start = int(self.rng.integers(0, span))
+            elif aug_dir == -1:  # looking right: the right half
+                crop_start = int(self.rng.integers(span // 2, span))
+            else:
+                crop_start = int(self.rng.integers(0, max(span // 2, 1)))
+            guided = GuidedView(self.sd_guidance,
+                                cam_aug.device_params(self.device),
+                                crop_start, self.guidance_generator)
+        perceptual = None
+        if self._vgg is not None:
+            perceptual = Perceptual(self._vgg.requires_grad_(False),
+                                    sd.perceptual_loss_lambda)
+        return guided, perceptual
+
     # -- one iteration ------------------------------------------------------
     def _box_steps(self, frame: int) -> tuple[list, list]:
         """(instances, `BoxStep`s) of the frame's instances that have a
@@ -352,13 +476,15 @@ class Trainer:
         normal_valid = 0.0 if wn is None else 1.0
         frame = int(getattr(cam, "frame", 0))
         insts, box_steps = self._box_steps(frame)
+        guided, perceptual = self._step_extras(it, cam)
         self.state, metrics, stepped = train_step(
             self.state, cam.device_params(self.device), gt, normal,
             normal_valid, self._active_sh_degree(it), self.bg,
             opt_cfg=self.cfg.opt, raster_cfg=self.raster_cfg,
             spatial_scale=self.spatial_scale,
             sh_total_degree=self.cfg.model.sh_degree,
-            boxes=box_steps, box_cfg=self.cfg.box)
+            boxes=box_steps, box_cfg=self.cfg.box, guidance=guided,
+            perceptual=perceptual)
         for inst, b in zip(insts, stepped):
             self.box_stats[inst] = b.stats
             self.frame_deltas[(frame, inst)] = b.deltas
@@ -606,11 +732,16 @@ def main(argv=None, device=None) -> Trainer:
     (`model_path/results`), saves PLYs at --save_iterations and at the end
     and checkpoints at --checkpoint_iterations. Returns the Trainer.
 
+    With $VEGS_SD_CHECKPOINT set (a local Stable-Diffusion checkpoint in
+    the diffusers layout; the text encoder needs `transformers`) the
+    Trainer gets diffusion guidance (`losses.sd_guidance.build_guidance`),
+    with the per-segment LoRA weights of
+    lora_model_dir/data_type/seq/<start>_<end> when that directory exists.
+
     Runs on `device` (default: the card). Not ported, and refused rather
     than skipped: data parallelism over more than one device and
-    multi-host runs (ROADMAP item 17), diffusion guidance from a set
-    `VEGS_SD_CHECKPOINT` (item 15). `model_path` defaults to the working
-    directory, and the KITTI-360 reader writes its point cache to
+    multi-host runs (ROADMAP item 17). `model_path` defaults to the
+    working directory, and the KITTI-360 reader writes its point cache to
     `./.cache`, as the JAX CLI does."""
     import argparse
 
@@ -645,14 +776,21 @@ def main(argv=None, device=None) -> Trainer:
         raise NotImplementedError(
             f"--data_parallel resolves to {dp} devices; data parallelism is "
             "not ported yet (ROADMAP item 17): pass --data_parallel 1")
-    if os.environ.get("VEGS_SD_CHECKPOINT"):
-        raise NotImplementedError(
-            "VEGS_SD_CHECKPOINT is set, but diffusion guidance is not ported "
-            "yet (ROADMAP item 15); unset it to train without guidance")
     safe_state(seed=cfg.model.seed)
 
     scene = Scene(cfg.model, cfg.data, cfg.box, device=dev)
     trainer = Trainer(cfg, scene, rng_seed=cfg.model.seed, device=dev)
+    sd_dir = os.environ.get("VEGS_SD_CHECKPOINT")
+    if sd_dir:
+        from .losses.sd_guidance import build_guidance
+
+        lora_dir = os.path.join(
+            cfg.sd.lora_model_dir, cfg.model.data_type, cfg.data.seq,
+            f"{cfg.data.start_frame}_{cfg.data.end_frame}")
+        trainer.sd_guidance = build_guidance(
+            cfg.sd, checkpoint_dir=sd_dir,
+            lora_dir=lora_dir if os.path.isdir(lora_dir) else None,
+            max_iters=cfg.opt.iterations, device=dev)
     trainer.init_from_normals()
     if extra.start_checkpoint is not None:
         trainer.load_checkpoint(extra.start_checkpoint)
