@@ -120,8 +120,33 @@ Phases, one JSON line each; any failure exits non-zero:
                  load, init, report and checkpoint times and sizes
                  (cli_run); the host's ms to read a frame and its normal
                  map (cli_frame_read); the launches of both runs (cli);
- 12. guide    -- the diffusion-guided training step at full width, after
-                 the cli phase's tensors are freed: the seeded
+ 12. tools    -- the offline tools around a training run, on the cli
+                 phase's segment and trained model directory, after its
+                 tensors are freed: the DPT normal estimator at its
+                 published width (ViT-B/16 on an R50 stem, 384x384,
+                 readout "project", random weights from seed 0) over the
+                 segment's 16 frames in sliding mode (7 crops a frame),
+                 the written maps read back through the KITTI-360 reader
+                 with unit norm, one crop on the card against the CPU with
+                 its control (tools_normals); 16 LoRA crops at 512 cut by
+                 `lora_preprocess`, then `lora_train.train_segment` with
+                 SD-2.1's UNet (LoRA rank 4) and VAE at full width, 3
+                 steps x grad-accum 4, the saved lora_weights.pkl loaded
+                 into a fresh UNet equal to the trained leaves to the bit
+                 (tools_lora); `render_video.render_sets` at the last
+                 iteration with interpolated cameras and box poses, 4
+                 trajectories x 8 frames, capacities from a probe of those
+                 views, the launch counters set to 0 just before (K1 and
+                 K4 at least once a frame, nothing dropped), each mp4 read
+                 back with OpenCV at 8 frames (tools_video); the test
+                 cameras rendered with their boxes into
+                 test/ours_<it>/{renders,gt} and `metrics.evaluate` on the
+                 card, every view's SSIM and PSNR equal to the CPU's on
+                 the same PNGs within 1e-5 (tools_metrics); PyTorch's
+                 default TF32 settings for the timed DPT and LoRA runs,
+                 TF32 off for the checks;
+ 13. guide    -- the diffusion-guided training step at full width, after
+                 the tools phase's tensors are freed: the seeded
                  2,233,571-Gaussian field and 3 street cameras at 376x1408
                  as in the train phase (ground truth from the field, sh_dc
                  + 0.35, synthetic normal maps); SD-2.1-base's UNet (LoRA
@@ -157,7 +182,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  perceptual loss and image gradient on the card against
                  the CPU, with the control its last feature layer left
                  out (guide_grad_check);
- 13. perf     -- the measurement path (`vegs_torch.perf`), after the
+ 14. perf     -- the measurement path (`vegs_torch.perf`), after the
                  guide phase's tensors are freed: M1 (block sum) and M2
                  (transpose) against their plain versions at the probes'
                  full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
@@ -168,9 +193,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
- 14. the kernels summary line (launches: the train phase's; launches_boxes:
-     the boxes phase's; launches_cli: the cli phase's; launches_guide: the
-     guide phase's), then the card line, then the last line
+ 15. the kernels summary line (launches: the train phase's; launches_boxes:
+     the boxes phase's; launches_cli: the cli phase's; launches_tools: the
+     tools phase's `render_sets`; launches_guide: the guide phase's), then
+     the card line, then the last line
      {"ok": true, "device": {...}}.
 
 Tolerances: K4 counts must agree (a tile may differ only by exactly one
@@ -218,7 +244,13 @@ orientation flipped. VGG16's image gradient, card against CPU: relative L2
 error <= 1e-2 (a ReLU mask or a max-pool choice flips where two float32
 runs differ in the last bits; the CPU parity tests read 1.0e-4 between JAX
 and torch, an H100 read 1.16e-3); control: the card's loss without its
-last feature layer.
+last feature layer. The tools phase: the DPT crop, card against CPU, both
+float32: |d| of the unit normals, scaled by the length of the decoded
+vector each normalizes where that is under 1, <= 1e-3 (an H100 read
+5.7e-5); control: the card's readout projections with their cls-token
+columns zeroed (1.7). The metrics' SSIM and PSNR, card against CPU on the
+same PNGs: within 1e-5 relative (read: 1.5e-7). The LoRA file reloaded:
+equal to the bit.
 """
 
 from __future__ import annotations
@@ -1388,7 +1420,7 @@ def footprint_share(cam, box2world) -> float:
 
 
 def boxes_phase(dev, card) -> dict:
-    """The dynamic-scene training path at full width (see phase 11)."""
+    """The dynamic-scene training path at full width (see phase 10)."""
     from vegs_torch import optim
     from vegs_torch.boxmodel import BoxDeltas
     from vegs_torch.config import ModelParams, VegsConfig
@@ -2022,61 +2054,449 @@ def cli_frame_read(trainer) -> dict:
             "frames": len(cams)}
 
 
-def cli_phase(dev, card) -> dict:
-    """The training CLI from a KITTI-360 segment on disk (see phase 11)."""
+def cli_phase(dev, card, tmp: Path) -> dict:
+    """The training CLI from a KITTI-360 segment on disk (see phase 11),
+    written under `tmp`; the segment and the model directory stay there for
+    the tools phase."""
     from vegs_torch.config import VegsConfig
 
     counters = main_counters()
     cwd = os.getcwd()
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        root = tmp / "kitti360"
-        t0 = time.perf_counter()
-        seg = write_cli_segment(root, dev)
+    root = tmp / "kitti360"
+    t0 = time.perf_counter()
+    seg = write_cli_segment(root, dev)
+    torch.cuda.empty_cache()
+    seg["write_s"] = time.perf_counter() - t0
+    pngs = png_check(seg.pop("images"))
+    emit("cli_segment", card=card, **seg)
+    emit("cli_png", card=card, **pngs)
+    os.chdir(tmp)   # the readers write their point cache to ./.cache
+    try:
+        probe = cli_probe(root, dev)
         torch.cuda.empty_cache()
-        seg["write_s"] = time.perf_counter() - t0
-        pngs = png_check(seg.pop("images"))
-        emit("cli_segment", card=card, **seg)
-        emit("cli_png", card=card, **pngs)
-        os.chdir(tmp)   # the readers write their point cache to ./.cache
-        try:
-            probe = cli_probe(root, dev)
-            torch.cuda.empty_cache()
-            emit("cli_probe", card=card, **probe)
-            model = tmp / "model"
-            argv = cli_argv(root, model, probe["k_cap"])
-            trainer, rec_a = cli_run(argv, counters)
-            run_a = check_cli_run("A", trainer, rec_a, 1)
-            if not rec_a["checkpoint_save"] or rec_a["checkpoint_load"]:
-                raise AssertionError("run A: one checkpoint saved, none loaded")
-            rep = rec_a["report"]
-            if len(rep) != 1 or len(rep[0]["pngs"]) != 8:
-                raise AssertionError(f"run A's report: {rep}")
-            VegsConfig.load(model / "cfg_args.json")
-            del trainer
-            torch.cuda.empty_cache()
-            emit("cli_run", run="A", card=card, **run_a)
+        emit("cli_probe", card=card, **probe)
+        model = tmp / "model"
+        argv = cli_argv(root, model, probe["k_cap"])
+        trainer, rec_a = cli_run(argv, counters)
+        run_a = check_cli_run("A", trainer, rec_a, 1)
+        if not rec_a["checkpoint_save"] or rec_a["checkpoint_load"]:
+            raise AssertionError("run A: one checkpoint saved, none loaded")
+        rep = rec_a["report"]
+        if len(rep) != 1 or len(rep[0]["pngs"]) != 8:
+            raise AssertionError(f"run A's report: {rep}")
+        VegsConfig.load(model / "cfg_args.json")
+        del trainer
+        torch.cuda.empty_cache()
+        emit("cli_run", run="A", card=card, **run_a)
 
-            trainer, rec_b = cli_run(
-                argv + ["--start_checkpoint", str(CLI_CKPT)], counters)
-            run_b = check_cli_run("B", trainer, rec_b, CLI_CKPT + 1)
-            ld = rec_b["checkpoint_load"]
-            if (len(ld) != 1 or not ld[0]["restored_equal"]
-                    or ld[0]["step"] != CLI_CKPT):
-                raise AssertionError(f"run B's restore: {ld}")
-            emit("cli_frame_read", card=card, **cli_frame_read(trainer))
-            del trainer
-            torch.cuda.empty_cache()
-            emit("cli_run", run="B", card=card, **run_b)
-        finally:
-            os.chdir(cwd)
+        trainer, rec_b = cli_run(
+            argv + ["--start_checkpoint", str(CLI_CKPT)], counters)
+        run_b = check_cli_run("B", trainer, rec_b, CLI_CKPT + 1)
+        ld = rec_b["checkpoint_load"]
+        if (len(ld) != 1 or not ld[0]["restored_equal"]
+                or ld[0]["step"] != CLI_CKPT):
+            raise AssertionError(f"run B's restore: {ld}")
+        emit("cli_frame_read", card=card, **cli_frame_read(trainer))
+        del trainer
+        torch.cuda.empty_cache()
+        emit("cli_run", run="B", card=card, **run_b)
+    finally:
+        os.chdir(cwd)
     launches = {k: run_a["launches"][k] + run_b["launches"][k]
                 for k in run_a["launches"]}
     emit("cli", card=card, launches=launches,
          seconds=time.perf_counter() - t_phase)
     return {"probe": probe, "png": pngs, "A": run_a, "B": run_b,
-            "launches": launches}
+            "launches": launches, "root": root, "model": model, "argv": argv}
+
+
+# The tools phase: the offline tools around a training run, on the cli
+# phase's segment and trained model directory.
+TOOLS_LORA_IMAGES, TOOLS_LORA_SIZE = 16, 512
+TOOLS_LORA_STEPS, TOOLS_LORA_ACCUM = 3, 4
+TOOLS_VIDEO_FRAMES = 8             # interpolated cameras a trajectory (of 53)
+# the DPT crop, card against CPU, both in float32: the largest |d| of the
+# unit normals, scaled by the length of the decoded vector each normalizes
+# where that is under 1 (tests/test_torch_dpt.py); control: the card's
+# readout with the cls half of its projection zeroed
+DPT_CROP_LIMIT = 1e-3
+METRICS_TOL = 1e-5                 # SSIM / PSNR, card against CPU
+
+
+def all_counters() -> dict:
+    from vegs_torch.perf import micro3
+
+    return {**main_counters(), "M1": micro3.psum_consume,
+            "M2": micro3.transpose}
+
+
+def dpt_crop_check(est, crop_rgb) -> dict:
+    """One 384x384 crop through the DPT on the card and on the CPU (the
+    same weights, float32 on both), and the control: the card's readout
+    projections with the weight columns that read the cls token zeroed."""
+    import cv2
+
+    from vegs_torch.priors.dpt import dpt_from_state
+
+    s = est.cfg.image_size
+    x = cv2.resize(crop_rgb, (s, s), interpolation=cv2.INTER_AREA)
+    x = torch.from_numpy((x - 0.5) / 0.5).permute(2, 0, 1)[None]
+    cpu = dpt_from_state({k: v.cpu() for k, v in est.model.state_dict().items()},
+                         est.cfg, "cpu")
+    heads = {}
+    cpu.head_out.register_forward_hook(
+        lambda m, i, o: heads.__setitem__("out", o))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu(x)
+    cpu_s = time.perf_counter() - t0
+    out = torch.clamp(heads["out"], 0, 1)
+    length = torch.linalg.vector_norm((out - 0.5) * 2, dim=1, keepdim=True)
+
+    def reading(n_card):
+        d = (n_card.cpu() - want).abs() * torch.clamp(length, max=1.0)
+        return float(d.max())
+
+    with torch.inference_mode():
+        got = est.model(x.to(est.device))
+        sound = reading(got)
+        d = est.cfg.embed_dim
+        saved = [(lin, lin.weight[:, d:].clone())
+                 for lin in (est.model.post3_readout, est.model.post4_readout)]
+        for lin, _ in saved:
+            lin.weight[:, d:] = 0
+        control = reading(est.model(x.to(est.device)))
+        for lin, w in saved:
+            lin.weight[:, d:] = w
+    return {"reading": sound, "control_reading": control,
+            "limit": DPT_CROP_LIMIT, "cpu_s": cpu_s,
+            "min_length": float(length.min()),
+            "normals_std": float(want.std(dim=(2, 3)).mean())}
+
+
+def normal_estimation(dev, card, root: Path) -> dict:
+    """The DPT at published width (readout "project", random weights from
+    seed 0) over the segment's frames, both cameras, sliding mode; the
+    written maps read back through the KITTI-360 reader; one crop on the
+    card against the CPU."""
+    from PIL import Image
+
+    from vegs_torch.priors.dpt import DPTConfig
+    from vegs_torch.scene.dataset_readers import (camera_from_info,
+                                                  readKITTI360Cameras)
+    from vegs_torch.tools.estimate_normal import (NormalEstimator,
+                                                  estimate_sequence)
+
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's default
+    t0 = time.perf_counter()
+    est = NormalEstimator(DPTConfig(), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in est.model.parameters())
+    frame = (root / "data_2d_raw" / CLI_SEQ / "image_00" / "data_rect"
+             / f"{CLI_START:010d}.png")
+    img = np.asarray(Image.open(frame), np.float32) / 255.0
+    est.infer_sliding(img)                  # warm-up (cuDNN's choices)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = estimate_sequence(root, CLI_SEQ, est, cam_ids=(0, 1))
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if n != 2 * CLI_FRAMES:
+        raise AssertionError(f"estimate_sequence wrote {n} maps")
+    # the model alone on one frame's 7 crops
+    side = img.shape[0]
+    crops = [img[:, x0:x0 + side] for x0 in
+             sorted(set(list(range(0, W - side + 1, side // 2)) + [W - side]))]
+    t0 = time.perf_counter()
+    est.infer_batch(crops)
+    torch.cuda.synchronize()
+    crops_ms = (time.perf_counter() - t0) * 1e3
+    # the written maps through the reader
+    norms = []
+    for info in readKITTI360Cameras(str(root), CLI_SEQ, CLI_START,
+                                    CLI_START + CLI_FRAMES):
+        nm = camera_from_info(info).original_normal
+        if nm.shape != (3, H, W) or not np.isfinite(nm).all():
+            raise AssertionError(f"{info.normal_path}: {nm.shape}")
+        norms.append(float(np.abs(np.linalg.norm(nm, axis=0) - 1).max()))
+    if max(norms) > 1e-5:
+        raise AssertionError(f"normal maps off unit length by {max(norms)}")
+    torch.backends.cudnn.allow_tf32 = False
+    crop = dpt_crop_check(est, img[:, :side])
+    hold("DPT crop, card against CPU", crop["reading"], DPT_CROP_LIMIT,
+         crop["control_reading"])
+    res = {"frames": n, "crops_per_frame": len(crops), "params": n_params,
+           "init_s": init_s, "ms_per_frame": seq_s / n * 1e3,
+           "model_ms_per_frame": crops_ms, "max_memory_allocated": peak,
+           "unit_norm_max_err": max(norms), "crop_check": crop}
+    del est
+    torch.cuda.empty_cache()
+    emit("tools_normals", card=card, readout="project", **res)
+    return res
+
+
+def lora_finetune(dev, card, root: Path, tmp: Path) -> dict:
+    """16 crops at 512 cut from the segment, then SD-2.1's LoRA fine-tuned
+    on them at full width (3 steps x grad-accum 4); the saved file loaded
+    into a fresh UNet equals the trained leaves, to the bit."""
+    from vegs_torch.diffusion.lora import is_lora_path, load_lora_weights
+    from vegs_torch.diffusion.unet import init_unet
+    from vegs_torch.tools import lora_preprocess, lora_train
+
+    t0 = time.perf_counter()
+    data = lora_preprocess.preprocess_segment(
+        root, CLI_SEQ, CLI_START, CLI_START + CLI_FRAMES, tmp / "lora_data",
+        n_images=TOOLS_LORA_IMAGES, size=TOOLS_LORA_SIZE, seed=SEED)
+    prep_s = time.perf_counter() - t0
+    images = lora_train.load_segment_images(data, size=TOOLS_LORA_SIZE)
+    models = sd_models(dev)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's default
+    start = {n: p.detach().clone() for n, p in models.unet.named_parameters()
+             if is_lora_path(n)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [time.perf_counter()]
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    out_dir = tmp / "lora_models" / CLI_SEQ / f"{CLI_START}_{CLI_START + CLI_FRAMES}"
+    losses = lora_train.train_segment(
+        models, images, str(out_dir), steps=TOOLS_LORA_STEPS, seed=SEED,
+        grad_accum=TOOLS_LORA_ACCUM, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    torch.backends.cudnn.allow_tf32 = False
+    ms = [(b - a) * 1e3 for a, b in zip(marks[:-1], marks[1:])]
+    if len(losses) != TOOLS_LORA_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"LoRA losses {losses}")
+    trained = {n: p.detach().clone() for n, p in models.unet.named_parameters()
+               if is_lora_path(n)}
+    moved = sum(not torch.equal(trained[n], start[n]) for n in trained)
+    if moved != len(trained):
+        raise AssertionError(f"{len(trained) - moved} LoRA leaves unchanged")
+    ucfg = models.unet.config
+    del models
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    fresh = load_lora_weights(init_unet(g, ucfg), out_dir)
+    unequal = [n for n, p in fresh.named_parameters()
+               if n in trained and not torch.equal(p, trained[n])]
+    if unequal:
+        raise AssertionError(f"lora_weights.pkl does not restore {unequal[:4]}")
+    res = {"crops": TOOLS_LORA_IMAGES, "size": TOOLS_LORA_SIZE,
+           "preprocess_s": prep_s, "steps": TOOLS_LORA_STEPS,
+           "grad_accum": TOOLS_LORA_ACCUM, "loss": losses, "ms_steps": ms,
+           "ms_per_update": float(np.median(ms[1:])),
+           "max_memory_allocated": peak, "lora_leaves": len(trained),
+           "lora_params": sum(p.numel() for p in trained.values()),
+           "file_bytes": (out_dir / "lora_weights.pkl").stat().st_size,
+           "reloaded_equal": True}
+    del fresh, trained, start
+    torch.cuda.empty_cache()
+    emit("tools_lora", card=card, **res)
+    return res
+
+
+def video_views(scene, max_frames):
+    """The views and boxes `render_frames` renders: the interpolated left
+    cameras at each default trajectory, with the interpolated box poses."""
+    import vegs_torch.render_video as rv
+    from vegs_torch.render import BoxInstance
+    from vegs_torch.scene.cameras import make_camera_like_input_camera
+
+    cams = sorted(scene.getTrainCameras(), key=lambda c: (c.frame, c.colmap_id))
+    left = [c for c in cams if getattr(c, "cam_idx", 0) == 0] or cams
+    interp = rv.interpolate_cameras(left, 4)[:max_frames]
+    timeline = rv.interpolate_bboxes(scene.train_bboxes,
+                                     [c.frame for c in left], 4)[:max_frames]
+    views = []
+    for aug in rv.DEFAULT_AUG_PARAMS:
+        for cam, boxes in zip(interp, timeline):
+            views.append((make_camera_like_input_camera(cam, **aug), [
+                BoxInstance(scene.box_gaussians[g], torch.from_numpy(
+                    m.astype(np.float32)).to(scene.device))
+                for g, m in boxes.items() if g in scene.box_gaussians]))
+    return views
+
+
+def render_videos(dev, card, cli: dict) -> dict:
+    """`render_video.render_sets` on the cli phase's config at its last
+    iteration: interpolated cameras and box poses, the 4 default
+    trajectories, TOOLS_VIDEO_FRAMES a trajectory; the launch counters set
+    to 0 just before and read just after; each mp4 read back."""
+    import cv2
+
+    import vegs_torch.render_video as rv
+    from vegs_torch.config import parse_config
+    from vegs_torch.scene import Scene
+
+    cfg = parse_config(cli["argv"])
+    scene = Scene(cfg.model, cfg.data, cfg.box, load_iteration=-1,
+                  shuffle=False, device=dev)
+    views = video_views(scene, TOOLS_VIDEO_FRAMES)
+    boxes_of = {id(v): b for v, b in views}
+    with torch.inference_mode():
+        raster, need_raw, need_pad = sized_config(
+            scene.gaussians, [v for v, _ in views], dev,
+            lambda v: boxes_of[id(v)], BOX_PROBE_CAP)
+    boxes_per_view = sorted({len(b) for _, b in views})
+    if not max(boxes_per_view):
+        raise AssertionError("no box in the views the videos render")
+    del scene, views
+    torch.cuda.empty_cache()
+    counters = all_counters()
+    rec = {"ms": [], "dropped": 0}
+
+    def timed(orig):
+        def render_image(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = orig(*a, **kw)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            return img
+        return render_image
+
+    def dropped(orig):
+        def render_view(*a, **kw):
+            out = orig(*a, **kw)
+            rec["dropped"] += int(out.num_dropped)
+            return out
+        return render_view
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Observe() as ob:
+        ob.wrap(rv, "render_novelview_image", timed)
+        ob.wrap(rv, "_render_view", dropped)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        outputs = rv.render_sets(cfg, device=dev, raster_cfg=raster,
+                                 max_frames=TOOLS_VIDEO_FRAMES)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_frames = len(rec["ms"])
+    if n_frames != 4 * TOOLS_VIDEO_FRAMES or rec["dropped"]:
+        raise AssertionError(f"{n_frames} frames, {rec['dropped']} dropped")
+    if min(launches["K1"], launches["K4"]) < n_frames:
+        raise AssertionError(f"launches {launches} for {n_frames} frames")
+    read_back = {}
+    for name, path in outputs.items():
+        cap = cv2.VideoCapture(path)
+        k = 0
+        while True:
+            ok, fr = cap.read()
+            if not ok:
+                break
+            if fr.shape != (H, W, 3):
+                raise AssertionError(f"{name}: frame {fr.shape}")
+            k += 1
+        cap.release()
+        read_back[name] = k
+    if sorted(read_back.values()) != [TOOLS_VIDEO_FRAMES] * 4:
+        raise AssertionError(f"videos read back {read_back}")
+    res = {"videos": read_back, "frames": n_frames, "k_cap": raster.k_cap,
+           "k_pad": raster.k_pad, "need_raw": need_raw, "need_pad": need_pad,
+           "boxes_per_view": boxes_per_view,
+           "ms_per_frame": float(np.median(rec["ms"][1:])),
+           "ms_frames": rec["ms"], "render_sets_s": total_s,
+           "launches": launches, "max_memory_allocated": peak}
+    emit("tools_video", card=card, **res)
+    return res
+
+
+def write_test_renders(dev, cli: dict) -> tuple:
+    """{model}/test/ours_<it>/{renders,gt}: each test camera rendered at
+    the last iteration with its frame's boxes, and its ground-truth frame,
+    as PNGs. Returns (model path, method)."""
+    from PIL import Image
+
+    import vegs_torch.render_video as rv
+    from vegs_torch.config import parse_config
+    from vegs_torch.ops.rasterize import RasterizeConfig
+    from vegs_torch.scene import Scene
+
+    cfg = parse_config(cli["argv"])
+    scene = Scene(cfg.model, cfg.data, cfg.box, load_iteration=-1,
+                  shuffle=False, device=dev)
+    method = f"ours_{scene.loaded_iter}"
+    base = Path(cfg.model.model_path) / "test" / method
+    for sub in ("renders", "gt"):
+        (base / sub).mkdir(parents=True, exist_ok=True)
+    cams = scene.getTestCameras()
+    bg = torch.zeros(3, device=dev)
+    raster = RasterizeConfig(k_cap=cli["probe"]["k_cap"], forward_only=True)
+    for i, cam in enumerate(cams):
+        boxes = {**scene.train_bboxes.get(cam.frame, {}),
+                 **scene.test_bboxes.get(cam.frame, {})}
+        img = rv.render_novelview_image(scene, cam, boxes, raster, bg,
+                                        rv.DEFAULT_AUG_PARAMS[0])
+        for sub, a in (("renders", img),
+                       ("gt", cam.original_image.transpose(1, 2, 0))):
+            Image.fromarray((np.clip(a, 0, 1) * 255).round().astype(np.uint8)
+                            ).save(base / sub / f"{i:05d}.png")
+    return Path(cfg.model.model_path), method, len(cams)
+
+
+def metrics_check(dev, card, cli: dict) -> dict:
+    """`metrics.evaluate` over the test renders on the card; SSIM and PSNR
+    of every view equal to the CPU's on the same PNGs within METRICS_TOL."""
+    from vegs_torch import metrics
+
+    model, method, n = write_test_renders(dev, cli)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = metrics.evaluate([str(model)], device=dev)
+    card_s = time.perf_counter() - t0
+    per_view = json.loads((model / "per_view.json").read_text())[method]
+    d = model / "test" / method
+    t0 = time.perf_counter()
+    cpu = metrics.evaluate_dirs(d / "renders", d / "gt", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {k: max(abs(per_view[k][v] - cpu["per_view"][k][v])
+                   / max(1.0, abs(cpu["per_view"][k][v]))
+                   for v in cpu["per_view"][k])
+            for k in ("SSIM", "PSNR")}
+    if len(per_view["PSNR"]) != n or n == 0:
+        raise AssertionError(f"{len(per_view['PSNR'])} views of {n} scored")
+    for k, e in errs.items():
+        hold(f"metrics {k}, card against CPU", e, METRICS_TOL)
+    out = {"views": n, "method": method, "results": res[str(model)],
+           "card_s": card_s, "cpu_s": cpu_s, "max_rel_err": errs,
+           "limit": METRICS_TOL, "lpips": "LPIPS" in per_view and bool(
+               per_view["LPIPS"])}
+    emit("tools_metrics", card=card, **out)
+    return out
+
+
+def tools_phase(dev, card, tmp: Path, cli: dict) -> dict:
+    """The offline tools around a training run (see phase 12), on the cli
+    phase's segment and model directory under `tmp`."""
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    os.chdir(tmp)   # the readers write their point cache to ./.cache
+    try:
+        normals = normal_estimation(dev, card, cli["root"])
+        lora = lora_finetune(dev, card, cli["root"], tmp)
+        video = render_videos(dev, card, cli)
+        torch.cuda.empty_cache()
+        mets = metrics_check(dev, card, cli)
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.allow_tf32 = False
+    seconds = time.perf_counter() - t_phase
+    emit("tools", card=card, launches=video["launches"], seconds=seconds)
+    return {"normals": normals, "lora": lora, "video": video,
+            "metrics": mets, "launches": video["launches"],
+            "seconds": seconds}
 
 
 # The guide phase: the diffusion-guided step at full width. The window is
@@ -2256,7 +2676,7 @@ def guide_grad_check(dev, n=50_000, seed=SEED) -> dict:
 
 
 def guide_phase(dev, card) -> dict:
-    """The diffusion-guided training step at full width (see phase 12)."""
+    """The diffusion-guided training step at full width (see phase 13)."""
     from vegs_torch import optim
     from vegs_torch.config import ModelParams, VegsConfig
     from vegs_torch.losses.sd_guidance import build_guidance
@@ -2577,7 +2997,7 @@ def m1_check(data, card) -> dict:
 
 
 def perf_phase(dev, card) -> dict:
-    """The measurement path (see phase 10). Returns the M1 and M2 check
+    """The measurement path (see phase 14). Returns the M1 and M2 check
     lines and the launches of every kernel in the path."""
     from vegs_torch.perf import micro3, refscale, roofline
 
@@ -2928,29 +3348,34 @@ def main() -> int:
     del scene, views, frames, st, on, off
     torch.cuda.empty_cache()
 
-    # -- 11. the dynamic-scene training path at full width ---------------------
+    # -- 10. the dynamic-scene training path at full width ---------------------
     boxes = boxes_phase(dev, card)
     torch.cuda.empty_cache()
 
-    # -- 12. the training CLI from a KITTI-360 segment on disk -----------------
-    cli = cli_phase(dev, card)
-    torch.cuda.empty_cache()
+    # -- 11-12. the training CLI from a KITTI-360 segment on disk, then the
+    # offline tools on that segment and its trained model ------------------
+    with tempfile.TemporaryDirectory() as seg_dir:
+        cli = cli_phase(dev, card, Path(seg_dir))
+        torch.cuda.empty_cache()
+        tools = tools_phase(dev, card, Path(seg_dir), cli)
+        torch.cuda.empty_cache()
 
-    # -- 12. the diffusion-guided training step at full width ---------------
+    # -- 13. the diffusion-guided training step at full width ---------------
     guide = guide_phase(dev, card)
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
-    # -- 13. the measurement path, on a card freed of the earlier phases ----
+    # -- 14. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
 
-    # -- 14. summary ---------------------------------------------------------
+    # -- 15. summary ---------------------------------------------------------
     launches = {**train["launches"]}
     m1, m2 = perf["M1"], perf["M2"]
     # launches: the static train phase's 8 steps; launches_boxes: the
     # boxes phase's 8 steps; launches_cli: the cli phase's two `main` runs
-    # (24 + 12 steps, their reports); launches_guide: the guide phase's 12
-    # guided steps (two renders each)
+    # (24 + 12 steps, their reports); launches_tools: the tools phase's
+    # `render_sets` (4 trajectories x TOOLS_VIDEO_FRAMES frames);
+    # launches_guide: the guide phase's 12 guided steps (two renders each)
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
@@ -2959,6 +3384,7 @@ def main() -> int:
          "launches": launches["K1"],
          "launches_boxes": boxes["launches"]["K1"],
          "launches_cli": cli["launches"]["K1"],
+         "launches_tools": tools["launches"]["K1"],
          "launches_guide": guide["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
@@ -2972,6 +3398,7 @@ def main() -> int:
          "launches": launches["K2"],
          "launches_boxes": boxes["launches"]["K2"],
          "launches_cli": cli["launches"]["K2"],
+         "launches_tools": tools["launches"]["K2"],
          "launches_guide": guide["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
@@ -2987,6 +3414,7 @@ def main() -> int:
          "launches": launches["K3"],
          "launches_boxes": boxes["launches"]["K3"],
          "launches_cli": cli["launches"]["K3"],
+         "launches_tools": tools["launches"]["K3"],
          "launches_guide": guide["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
@@ -3004,6 +3432,7 @@ def main() -> int:
          "launches": launches["K4"],
          "launches_boxes": boxes["launches"]["K4"],
          "launches_cli": cli["launches"]["K4"],
+         "launches_tools": tools["launches"]["K4"],
          "launches_guide": guide["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
@@ -3016,6 +3445,7 @@ def main() -> int:
          "replaces": "perf/micro3_r02.py:56",
          "launches": perf["launches"]["M1"], "launched_by": perf_only,
          "launches_guide": guide["launches"]["M1"],
+         "launches_tools": tools["launches"]["M1"],
          "matches_plain": True, "max_abs_err": m1["max_abs_err"],
          "case": f"{m1['dtype']} {m1['layout']}",
          "ms": m1["ms"], "plain_ms": m1["plain_ms"],
@@ -3026,6 +3456,7 @@ def main() -> int:
          "replaces": "perf/micro3_r02.py:107",
          "launches": perf["launches"]["M2"], "launched_by": perf_only,
          "launches_guide": guide["launches"]["M2"],
+         "launches_tools": tools["launches"]["M2"],
          "matches_plain": True, "max_abs_err": m2["max_abs_err"],
          "case": m2["dtype"],
          "ms": m2["ms"], "plain_ms": m2["plain_ms"],

@@ -12,7 +12,9 @@ layout; K1 |d| <= 1e-5 + 1e-4 |ref| outside pixels
 whose stop index differs, those at most 0.1% of the pixels; K2 and K3 and
 the training step's gradients as stated in their tests, each limit set
 from the readings on an H100 (PERF.md); M2 bit-identical to its plain
-version; M1 within 1e-8 of the sum of |x|.
+version; M1 within 1e-8 of the sum of |x|. The tools: the tiny DPT's
+crop and one tiny LoRA update, card against CPU, with the limits and
+controls stated beside them.
 
 The card's machine has no JAX, and tests/conftest.py imports it, so run
 this file there with `--noconftest`.
@@ -781,3 +783,110 @@ def test_guided_step_launches_each_kernel_twice(cuda):
     assert all(np.isfinite(v) for v in m.values()), m
     assert m["num_dropped"] == m["aug_num_dropped"] == 0
     assert m["guidance_loss"] > 0 and m["perceptual_loss"] > 0
+
+
+# -- the offline tools -----------------------------------------------------------
+
+# the DPT crop, card against CPU: the largest |d| of the unit normals, scaled
+# by the length of the decoded vector each normalizes where that is under 1
+# (tests/test_torch_dpt.py); control: the card's readout projections with
+# their cls-token columns zeroed
+DPT_CROP_LIMIT = 1e-3
+# one LoRA update (AdamW from zero moments), card against CPU, at lr: every
+# LoRA element within 2 lr, and all but 2% within 1e-3 lr (Adam divides
+# each component by its own root mean square, so one whose gradient is
+# near zero moves by up to lr whatever its float32 summation order);
+# control: the card's update with one micro-batch's timestep moved by 100
+LORA_LR, LORA_SHARE = 1e-3, 0.02
+
+
+def _dpt_reading(n_card, want, length):
+    d = (n_card.cpu() - want).abs() * torch.clamp(length, max=1.0)
+    return float(d.max())
+
+
+def test_dpt_crop_card_matches_cpu(cuda):
+    """The tiny DPT with the project readout: one crop on the card against
+    the CPU, float32 on both."""
+    from vegs_torch.priors.dpt import DPTConfig, dpt_from_state, init_dpt
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DPTConfig.tiny()
+    cpu = init_dpt(torch.Generator().manual_seed(0), cfg).eval()
+    card = dpt_from_state(cpu.state_dict(), cfg, cuda)
+    heads = {}
+    cpu.head_out.register_forward_hook(
+        lambda m, i, o: heads.__setitem__("out", o))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (2, 3, 64, 64)).astype(np.float32))
+    with torch.inference_mode():
+        want = cpu(x)
+        length = torch.linalg.vector_norm(
+            (torch.clamp(heads["out"], 0, 1) - 0.5) * 2, dim=1, keepdim=True)
+        sound = _dpt_reading(card(x.to(cuda)), want, length)
+        for lin in (card.post3_readout, card.post4_readout):
+            lin.weight[:, cfg.embed_dim:] = 0
+        control = _dpt_reading(card(x.to(cuda)), want, length)
+    print(f"DPT crop reading {sound:.3e} control {control:.3e}")
+    assert sound <= DPT_CROP_LIMIT < control
+
+
+def test_lora_update_card_matches_cpu(cuda):
+    """One `train_lora` step (grad-accum 2) of the tiny stack on the card
+    against the CPU, on the same draws, TF32 off."""
+    import copy
+
+    from vegs_torch.diffusion import lora
+    from vegs_torch.diffusion.pipeline import DiffusionModels
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    cpu = DiffusionModels.tiny(g, lora_rank=4)
+    with torch.no_grad():   # non-zero up-projections: the adapters act
+        for n, p in cpu.unet.named_parameters():
+            if n.endswith("lora_up.weight"):
+                p.normal_(0.0, 0.05, generator=g)
+    on_card = DiffusionModels(
+        unet=copy.deepcopy(cpu.unet).to(cuda),
+        vae=copy.deepcopy(cpu.vae).to(cuda),
+        schedule=cpu.schedule._replace(
+            betas=cpu.schedule.betas.to(cuda),
+            alphas_cumprod=cpu.schedule.alphas_cumprod.to(cuda)),
+        text_embeddings=cpu.text_embeddings.to(cuda))
+    images = np.random.default_rng(2).uniform(0, 1, (2, 3, 40, 48)).astype(
+        np.float32)
+    draws = [lora.draw_micro_batch(g, images.shape, 32, 1, (1, 4, 16, 16),
+                                   1000) for _ in range(2)]
+
+    def leaves(m):
+        return {n: p.detach().cpu().clone()
+                for n, p in m.unet.named_parameters() if lora.is_lora_path(n)}
+
+    def run(models, ds):
+        before = leaves(models)
+        _, losses = lora.train_lora(models, images, steps=1, grad_accum=2,
+                                    lr=LORA_LR, crop=32, draws=ds)
+        after = leaves(models)
+        with torch.no_grad():
+            for n, p in models.unet.named_parameters():
+                if n in before:
+                    p.copy_(before[n])
+        return after, losses
+
+    want, wl = run(cpu, draws)
+    got, gl = run(on_card, draws)
+    moved = [d._replace(t=d.t + 100) if i == 0 else d
+             for i, d in enumerate(draws)]
+    ctl, _ = run(on_card, moved)
+
+    def reading(a):
+        d = torch.cat([(a[n] - want[n]).abs().flatten() for n in want])
+        return float((d > 1e-3 * LORA_LR).float().mean()), float(d.max())
+
+    np.testing.assert_allclose(gl, wl, rtol=1e-5)
+    share, worst = reading(got)
+    c_share, _ = reading(ctl)
+    print(f"LoRA update: share off {share:.4f} (max {worst / LORA_LR:.2e} lr)"
+          f", control {c_share:.4f}")
+    assert worst <= 2 * LORA_LR
+    assert share <= LORA_SHARE < c_share

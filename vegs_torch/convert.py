@@ -9,7 +9,8 @@ checkpoint tree, the JAX package's or the port's. The PLY snapshot (`vegs_torch.
 other bridge: a PLY written by the JAX package loads unchanged. The
 learned modules (the diffusion UNet and VAE, VGG16's features) come from
 the JAX package's Flax parameter trees, as numpy (`unet_from_flax`,
-`vae_from_flax`, `vgg_from_flax`, `diffusion_models_from_flax`).
+`vae_from_flax`, `vgg_from_flax`, `diffusion_models_from_flax`; the DPT
+normal model's as a state dict, `dpt_from_flax`).
 """
 
 from __future__ import annotations
@@ -391,3 +392,20 @@ def diffusion_models_from_flax(unet_params: dict, unet_config, vae_params: dict,
                                    alphas_cumprod=f32(alphas_cumprod),
                                    num_train_timesteps=len(betas)),
         text_embeddings=f32(text_embeddings))
+
+
+def dpt_from_flax(params: dict) -> dict:
+    """The JAX DPTNormal's parameter tree (numpy leaves, with or without its
+    top "params") -> the port's `DPTNormal` state dict (float32 CPU
+    tensors; load it with `priors.dpt.dpt_from_state`). The token
+    parameters keep their names; a JAX tree has no readout projections,
+    so it fits `DPTConfig(readout="ignore")`."""
+    params = params.get("params", params)
+    out = {}
+    for path, v in _flax_leaves(params).items():
+        leaf = path[-1]
+        a = _to_torch_layout(leaf, np.asarray(v, np.float32))
+        name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(
+            np.array(a, copy=True))
+    return out

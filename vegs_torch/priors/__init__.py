@@ -1,5 +1,6 @@
-"""Learned-prior initialization (port of vegs_tpu/priors; the normal-guided
-covariance init; the DPT normal estimator is not ported yet)."""
+"""Learned priors (port of vegs_tpu/priors): the normal-guided covariance
+init, and the DPT normal estimator in `priors.dpt` (imported on its own:
+the init does not need it)."""
 
 from .norminit import (  # noqa: F401
     NormalAccumulator,

@@ -5,10 +5,16 @@ augmented views (port of vegs_tpu/render_video.py).
 frame's boxes at their annotated poses, `render_novelview_rotaxis` the
 covariance-axis picture of that view (the training report's two images).
 `render_frames` renders every interpolated camera at each fixed
-extrapolation trajectory and returns the frames; `render_set` does that and
-writes one mp4 per trajectory (OpenCV, imported only there). The
-box-pose interpolation of `render_frames` (a scene with boxes) and the
-command-line entry point are not ported yet.
+extrapolation trajectory, with the boxes at their interpolated poses
+(SLERP of the rotation, lerp of scale and translation between annotated
+frames), and returns the frames; `render_set` does that and writes one mp4
+per trajectory (OpenCV, imported only there); `render_sets` loads a
+trained model directory first.
+
+    python -m vegs_torch.render_video --source_path ROOT --model_path MODEL \
+        --data_type kitti360 --start_frame 3972 --end_frame 4258 --k_cap N
+
+(the training CLI's flags) renders on the card into MODEL/videos.
 """
 
 from __future__ import annotations
@@ -64,6 +70,42 @@ def interpolate_cameras(cams: Sequence[Camera], n_interp: int = 4) -> list[Camer
                 image=None, normal=None,
             ))
     out.append(cams[-1])
+    return out
+
+
+def interpolate_box2world(m_a: np.ndarray, m_b: np.ndarray,
+                          t: float) -> np.ndarray:
+    """SLERP the rotation, lerp the scale and translation of two
+    box-to-world matrices (float32, as the JAX package computes)."""
+    Ra, Sa, Ta = geometry.decompose_T_to_RS(_f32(m_a))
+    Rb, Sb, Tb = geometry.decompose_T_to_RS(_f32(m_b))
+    q = geometry.quat_slerp(geometry.rotmat_to_quat(Ra),
+                            geometry.rotmat_to_quat(Rb), t)
+    R = geometry.quat_to_rotmat(q)
+    S = (1 - t) * Sa + t * Sb
+    T = (1 - t) * Ta + t * Tb
+    return geometry.compose_T(R, S, T).numpy()
+
+
+def interpolate_bboxes(bboxes: dict, frames: Sequence[int], n_interp: int = 4):
+    """{frame: {instance: box-to-world matrix or annotation}} -> one
+    {instance: matrix} per interpolated camera: the instances annotated in
+    both frames interpolated, those only in the first kept where they
+    are."""
+    out = []
+    frames = list(frames)
+    for fa, fb in zip(frames[:-1], frames[1:]):
+        a = bboxes.get(fa, {})
+        b = bboxes.get(fb, {})
+        for k in range(n_interp):
+            t = k / n_interp
+            cur = {inst: interpolate_box2world(box_matrix(a[inst]),
+                                               box_matrix(b[inst]), t)
+                   for inst in set(a) & set(b)}
+            cur.update({inst: box_matrix(a[inst]) for inst in set(a) - set(b)})
+            out.append(cur)
+    out.append({i: box_matrix(bx)
+                for i, bx in bboxes.get(frames[-1], {}).items()})
     return out
 
 
@@ -148,26 +190,29 @@ def render_frames(scene: Scene, n_interp: int = 4,
                   raster_cfg: RasterizeConfig = RasterizeConfig(),
                   white_background: bool = False,
                   max_frames: Optional[int] = None) -> dict:
-    """Render the interpolated train trajectory at each augmentation.
+    """Render the interpolated train trajectory, with the boxes at their
+    interpolated poses, at each augmentation.
 
     Returns {video name: [frame [H, W, 3] float32, ...]}."""
-    if scene.train_bboxes:
-        raise NotImplementedError("the box-pose interpolation is not ported "
-                                  "yet")
     raster_cfg = raster_cfg._replace(forward_only=True)  # inference only
     bg = torch.tensor([1.0] * 3 if white_background else [0.0] * 3,
                       device=scene.device)
     train_cams = sorted(scene.getTrainCameras(), key=lambda c: (c.frame, c.colmap_id))
     cams_left = [c for c in train_cams if getattr(c, "cam_idx", 0) == 0] or train_cams
     cams = interpolate_cameras(cams_left, n_interp)
+    if scene.train_bboxes:
+        timeline = interpolate_bboxes(scene.train_bboxes,
+                                      [c.frame for c in cams_left], n_interp)
+    else:
+        timeline = [{} for _ in cams]
     if max_frames:
-        cams = cams[:max_frames]
+        cams, timeline = cams[:max_frames], timeline[:max_frames]
     out = {}
     with torch.inference_mode():
         for aug in aug_params:
             out[video_name(aug)] = [
-                render_novelview_image(scene, cam, {}, raster_cfg, bg, aug)
-                for cam in cams]
+                render_novelview_image(scene, cam, boxes, raster_cfg, bg, aug)
+                for cam, boxes in zip(cams, timeline)]
     return out
 
 
@@ -185,3 +230,34 @@ def render_set(scene: Scene, out_dir, n_interp: int = 4,
         save_video(fr, path, fps)
         outputs[name] = str(path)
     return outputs
+
+
+def render_sets(cfg, load_iteration: int = -1, out_subdir: str = "videos",
+                device=None, **kwargs) -> dict:
+    """Load the trained model of `cfg` (a `VegsConfig`) at
+    `load_iteration` (-1: the last saved) on `device` (default: the card)
+    and render its videos into `{model_path}/{out_subdir}`; `kwargs` go to
+    `render_set`."""
+    scene = Scene(cfg.model, cfg.data, cfg.box, load_iteration=load_iteration,
+                  shuffle=False, device=device)
+    out_dir = Path(cfg.model.model_path) / out_subdir
+    return render_set(scene, out_dir,
+                      white_background=cfg.model.white_background, **kwargs)
+
+
+def main(argv=None) -> dict:
+    """The command line: the training CLI's flags; the rasterizer's backend,
+    `--k_cap` and `--clamp_radius` as given there."""
+    from .config import parse_config
+
+    cfg = parse_config(argv)
+    raster_cfg = RasterizeConfig(backend=cfg.pipeline.backend,
+                                 k_cap=cfg.pipeline.k_cap,
+                                 clamp_radius=cfg.pipeline.clamp_radius)
+    out = render_sets(cfg, raster_cfg=raster_cfg)
+    print(out)
+    return out
+
+
+if __name__ == "__main__":
+    main()

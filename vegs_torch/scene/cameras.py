@@ -8,7 +8,7 @@ images with PIL (imported on first read), normal maps with `np.load`, and
 OpenCV imported only to resize a normal map whose size differs from the
 camera's. `augment_camera` is the random extrapolated view
 of diffusion guidance, `make_camera_like_input_camera` its deterministic
-eval/video form.
+eval/video form. `MiniCam` is the remote viewer's camera (`viewer.py`).
 """
 
 from __future__ import annotations
@@ -177,6 +177,24 @@ class Camera:
             image_height=int(image_size),
             image_width=int(r * self.image_width),
         )
+
+
+@dataclasses.dataclass
+class MiniCam:
+    """The remote viewer's camera: size, fields of view, clip planes and
+    the row-vector (glm layout) view and view-projection matrices."""
+
+    image_width: int
+    image_height: int
+    FoVy: float
+    FoVx: float
+    znear: float
+    zfar: float
+    world_view_transform: np.ndarray
+    full_proj_transform: np.ndarray
+
+    def __post_init__(self):
+        self.camera_center = np.linalg.inv(self.world_view_transform)[3, :3]
 
 
 def _c2w(cam: Camera) -> np.ndarray:
