@@ -182,7 +182,40 @@ Phases, one JSON line each; any failure exits non-zero:
                  perceptual loss and image gradient on the card against
                  the CPU, with the control its last feature layer left
                  out (guide_grad_check);
- 14. perf     -- the measurement path (`vegs_torch.perf`), after the
+ 14. parallel -- multi-device training at full width, after the guide
+                 phase's tensors are freed: the seeded 2,233,571-Gaussian
+                 field and 3 street cameras at 376x1408 (ground truth from
+                 the field, sh_dc + 0.35, synthetic normal maps, bf16 aux).
+                 D = 1 under NCCL in this process (a world of one over a
+                 file:// store): 3 single-device Trainer steps (3001-3003,
+                 twice: the second run is the card's run-to-run floor),
+                 3 `Trainer(dp_devices=1)` steps, the gauss- and
+                 tile-sharded renders of camera 0 (the JAX tile-sharded
+                 function raises at D = 1) and 3 `make_tp_train_step`
+                 steps (parallel_d1: Adam's first moments against the
+                 single-device Trainer's, relative L2 per leaf, with the
+                 control the single-device moments two steps earlier; the
+                 renders equal to the main path's render to the bit; ms
+                 per step, peak memory, launches); then D = 2 as two
+                 spawned gloo ranks sharing the card, "gloo-host" (every
+                 collective staged through the host; NCCL refuses two ranks
+                 on one card), each holding half of the field's 2,236,416
+                 rows: the sharded renders equal to the bit, the
+                 exchange's bucket sizes from a probe and k_exch sized by
+                 its need + 5%, K1 and K2 held against their plain
+                 versions on rank 0's layout of the first TP step (its
+                 received splats on the full tile grid, only its own tiles
+                 non-empty) and K3 on its `order_raw` stream, with the
+                 limits and controls of phases 4 and 8 (parallel_kernels);
+                 3 TP steps, their moments against D = 1's row block; 3
+                 DP Trainer steps on 2 cameras, the replicated field, Adam
+                 state and statistics' checksum equal on both ranks
+                 (parallel_d2: ms per step, peak memory per rank beside
+                 `sharded_state_bytes`, launches; parallel: the phase's
+                 launches, each of K1-K4 at least once, K4 in the DP
+                 steps). A D = 2 reading on one card measures the sharded
+                 code, not scaling across cards;
+ 15. perf     -- the measurement path (`vegs_torch.perf`), after the
                  guide phase's tensors are freed: M1 (block sum) and M2
                  (transpose) against their plain versions at the probes'
                  full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
@@ -193,9 +226,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
- 15. the kernels summary line (launches: the train phase's; launches_boxes:
+ 16. the kernels summary line (launches: the train phase's; launches_boxes:
      the boxes phase's; launches_cli: the cli phase's; launches_tools: the
-     tools phase's `render_sets`; launches_guide: the guide phase's), then
+     tools phase's `render_sets`; launches_guide: the guide phase's;
+     launches_parallel: the parallel phase's, both D), then
      the card line, then the last line
      {"ok": true, "device": {...}}.
 
@@ -255,6 +289,7 @@ equal to the bit.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import sys
@@ -2909,6 +2944,490 @@ def guide_phase(dev, card) -> dict:
             "k3_aug": k3_aug, "check": check}
 
 
+# the parallel phase: D = 1 under NCCL in this process, D = 2 gloo-host ranks
+PAR_ITS = (3001, 3002, 3003)  # SH degree 3; no densify or opacity reset
+PAR_CAMS = (0, 1, 2)
+PAR_D = 2
+# the Adam first moments (0.1 x the gradient after the first step) against
+# the single-device step's: relative L2 error per leaf
+PAR_MU_RTOL = 1e-4
+
+
+def clone_field(f):
+    from vegs_torch.parallel.tp_trainer import shard_field
+
+    return shard_field(f, 0, 1)
+
+
+def mu_gap(a: dict, b: dict) -> float:
+    """The largest relative L2 error over the leaves of Adam's first
+    moments `a` against `b` (float64 norms)."""
+    return max(float((a[k].double() - b[k].double()).norm()
+                     / b[k].double().norm().clamp(min=1e-300)) for k in b)
+
+
+def moments(opt) -> dict:
+    return {k: v.detach().clone() for k, v in opt["mu"].items()}
+
+
+def par_scene(model_dir: Path, dev, targets=None):
+    """The parallel phase's scene: the seeded 2,233,571-Gaussian field (the
+    PLY under model_dir, written when `targets` is None) and 3 street
+    cameras at 376x1408, ground truth rendered from the unperturbed field
+    with synthetic normal maps (or `targets`' images and normals), then
+    sh_dc + 0.35. Returns (scene, targets)."""
+    from vegs_torch.config import ModelParams
+    from vegs_torch.render import render
+    from vegs_torch.scene import Scene
+    from vegs_torch.scene.dataset_readers import SceneInfo, getNerfppNorm
+    from vegs_torch.utils.synthetic import street_camera_infos, unit_normal_map
+
+    ply = model_dir / "point_cloud" / "iteration_1" / "point_cloud.ply"
+    if targets is None:
+        write_field_ply(ply, N_REF, SEED)
+    infos = street_camera_infos(3, H, W, fovx=1.2, fovy=0.4)
+    info = SceneInfo(point_cloud=None, train_cameras=infos, test_cameras=[],
+                     nerf_normalization=getNerfppNorm(infos), ply_path="")
+    scene = Scene(ModelParams(model_path=str(model_dir)), scene_info=info,
+                  load_iteration=-1, shuffle=False, device=dev)
+    cams = scene.getTrainCameras()
+    if targets is None:
+        with torch.inference_mode():
+            cfg, need_raw, need_pad = sized_config(scene.gaussians, cams, dev)
+            # the sharded renders run no sat cull: their padded layout's need
+            nosat = cfg._replace(sat_cull=False, k_pad=PROBE_CAP,
+                                 forward_only=True)
+            need_nosat = max(int(field_stage(
+                scene.gaussians, c.device_params(dev), nosat
+            ).binned.tile_starts[-1]) for c in cams[:1])
+            images = []
+            for cam in cams:
+                out = render(cam, scene.gaussians,
+                             config=cfg._replace(forward_only=True))
+                images.append(torch.clamp(out.rgb, 0, 1).cpu().numpy())
+        targets = {"images": images,
+                   "normals": [unit_normal_map(H, W, seed=i)
+                               for i in range(len(cams))],
+                   "k_cap": cfg.k_cap, "k_pad": cfg.k_pad,
+                   "k_pad_nosat": r512(need_nosat * 1.05),
+                   "need_raw": need_raw, "need_pad": need_pad}
+    for cam, img, nm in zip(cams, targets["images"], targets["normals"]):
+        cam.image, cam.normal = img, nm
+    with torch.no_grad():
+        scene.gaussians.sh_dc += 0.35
+    return scene, targets
+
+
+def par_inputs(cam, dev):
+    """(CameraParams, gt, normal) of a camera on the card."""
+    gt = torch.from_numpy(np.asarray(cam.original_image, np.float32)).to(dev)
+    nm = torch.from_numpy(np.asarray(cam.world_normal(), np.float32)).to(dev)
+    return cam.device_params(dev), gt, nm
+
+
+def par_tp_steps(step, state, cams, dev):
+    """PAR_ITS steps of a TP step function on PAR_CAMS: (state, ms per
+    step, last metrics)."""
+    f, o, s = state
+    bg = torch.zeros(3, device=dev)
+    ms, m = [], None
+    for i, ci in enumerate(PAR_CAMS):
+        camp, gt, nm = par_inputs(cams[ci], dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f, o, s, _, m = step(f, o, s, i, camp, gt, nm, 3, bg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if int(m["num_dropped"]):
+            raise AssertionError(f"TP step {i} dropped instances: {m}")
+    return (f, o, s), ms, {k: float(v) for k, v in m.items()}
+
+
+def par_trainer_steps(trainer, cams, explicit=True, mid=None):
+    """PAR_ITS Trainer iterations (on PAR_CAMS when `explicit`, else the
+    cameras the Trainer draws); `mid` receives the moments after the
+    first. Returns (ms per step, losses)."""
+    ms, losses = [], []
+    for it, ci in zip(PAR_ITS, PAR_CAMS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_iteration(it, camera=cams[ci] if explicit else None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+        if m["num_dropped"] or not np.isfinite(m["loss"]):
+            raise AssertionError(f"iteration {it}: {m}")
+        if mid is not None and it == PAR_ITS[0]:
+            mid.update(moments(trainer.state.opt))
+    return ms, losses
+
+
+def counts(counters) -> dict:
+    return {k: c.launches for k, c in counters.items()}
+
+
+def par_renders(field, cam, cfg, gm, tm):
+    """The gauss- and tile-sharded renders of this rank's row block of
+    `field` at `cam` (cfg's k_pad sized for the padded layout without the
+    sat cull): {"gauss": (rgb, depth, alpha), "tile": ...}."""
+    from vegs_torch.parallel import (make_gauss_sharded_rasterize,
+                                     shard_field_arrays)
+    from vegs_torch.parallel.tile_sharded import make_tile_sharded_rasterize
+    from vegs_torch.render import field_arrays
+
+    bg = torch.zeros(3, device=field.means.device)
+    with torch.no_grad():
+        a = field_arrays(field, 3)
+        g = make_gauss_sharded_rasterize(gm, cam, cfg)(
+            *shard_field_arrays(gm, *a), bg)
+        t = make_tile_sharded_rasterize(tm, cam, cfg)(
+            *shard_field_arrays(tm, *a), bg)
+    return {"gauss": g, "tile": t[:3], "tile_dropped": int(t[3])}
+
+
+def equal_to(ref: dict, got) -> dict:
+    return {k: bool(torch.equal(ref[k], x.to(ref[k].device)))
+            for k, x in zip(("rgb", "depth", "alpha"), got)}
+
+
+def par_kernel_checks(plan, cam, gt, nm, cfg, opt_cfg, comm, f):
+    """K1, K2 and K3 on the first tile-sharded step's inputs: both ranks
+    take the step's loss and its gradient at the blend's output and at the
+    payload expansion (the reverse exchange needs both); rank 0 holds K1
+    and K2 against their plain versions on its full-grid layout (only its
+    own tiles hold instances) and K3 on its `order_raw` stream, with the
+    limits and controls of phases 4 and 8. Returns rank 0's readings."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+    from vegs_torch.parallel.tile_sharded import tile_render_local
+    from vegs_torch.parallel.tp_trainer import _image_loss, _whole_image
+    from vegs_torch.render import field_arrays
+
+    rec = {}
+    bg = torch.zeros(3, device=gt.device)
+    out_loc, _, _ = tile_render_local(plan, cam, cfg, 3, comm,
+                                      *field_arrays(f, 3), record=rec)
+    rgb, out = _whole_image(out_loc, comm, H, W, bg)
+    loss, _, nloss = _image_loss(rgb, out, gt, nm, opt_cfg, True, H, W)
+    loss = (loss + opt_cfg.lambda_dnormal * nloss) / comm.size
+    dout, d_pf, d_pa = torch.autograd.grad(
+        loss, [rec["blend_out"], *rec["gather_out"]])
+    res = None
+    if comm.index == 0:
+        pf, pa, ts, grid, hp, wp = rec["blend_args"]
+        ns = SimpleNamespace(payload_f32=pf, payload_aux=pa, grid=grid,
+                             pay_rows=rec["pay_rows"],
+                             binned=SimpleNamespace(tile_starts=ts,
+                                                    gidx=rec["gidx"]))
+        k1 = compare_k1(ns)
+        k2 = compare_k2((pf, pa, ts, rec["blend_out"].detach(),
+                         dout.contiguous(), grid))
+        for rows, scale in K2_SCALE.items():
+            hold(f"K2 {rows} by {scale} (tile-sharded)",
+                 k2[rows]["reading"][scale], K2_RTOL,
+                 k2[rows]["control_reading"][scale])
+        if k2["flip_tiles"] > K2_MAX_FLIP_TILES * grid.num_tiles:
+            raise AssertionError(f"K2: {k2['flip_tiles']} stop-flip tiles")
+        k3 = compare_k3_fused((d_pf.contiguous(), d_pa.contiguous(),
+                               rec["order_raw"], rec["ends"]), ns)
+        for rows in ("f32_rows", "aux_rows"):
+            hold(f"K3 fused {rows} (order_raw)", k3[rows]["reading"], K3_RTOL,
+                 k3[rows]["control_reading"])
+        k2.pop("pairs")
+        res = {"k1": k1, "k2": k2, "k3": k3,
+               "local_tiles": int((ts[1:] > ts[:-1]).sum()),
+               "instances": int(ts[-1])}
+    dist.barrier()
+    return res
+
+
+def _parallel_rank(rank: int, tmp: str, device_type: str) -> dict:
+    """One of the D = 2 gloo ranks of the parallel phase, both on card 0
+    (or on the CPU, for a rehearsal)."""
+    from vegs_torch import optim
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.gaussians import DensifyStats
+    from vegs_torch.ops.rasterize import RasterizeConfig
+    from vegs_torch.parallel import comm as C
+    from vegs_torch.parallel.gauss_sharded import (make_gauss_mesh,
+                                                   sharded_state_bytes)
+    from vegs_torch.parallel.mesh import make_mesh
+    from vegs_torch.parallel.tile_sharded import (make_tile_mesh,
+                                                  make_tile_plan,
+                                                  tile_render_local)
+    from vegs_torch.parallel.tp_trainer import (make_tp_train_step,
+                                                shard_train_state)
+    from vegs_torch.perf.timing import card_line
+    from vegs_torch.render import field_arrays
+    from vegs_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type, 0 if device_type == "cuda" else None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tmp = Path(tmp)
+    card = card_line()
+    targets = torch.load(tmp / "targets.pt", weights_only=False)
+    scene, _ = par_scene(tmp / "model", dev, targets)
+    cams = scene.getTrainCameras()
+    cfg = RasterizeConfig(k_cap=targets["k_cap"], k_pad=targets["k_pad"])
+    tcfg = VegsConfig()
+    comm = make_mesh(PAR_D).comm()
+    transport = comm.transport(dev)
+    gm, tm = make_gauss_mesh(PAR_D), make_tile_mesh(PAR_D)
+    counters = main_counters()
+    out = {"transport": transport, "card": card, "rank": rank}
+
+    # TP: this rank's half of the field, Adam and statistics
+    tcomm = tm.comm()
+    state = shard_train_state(tm, clone_field(scene.gaussians),
+                              optim.adam_init(scene.gaussians),
+                              DensifyStats.zeros(scene.gaussians.capacity,
+                                                 dev))
+    out["rows"] = state[0].capacity
+    out["state_bytes"] = sharded_state_bytes(scene.gaussians, PAR_D)
+    cam0, gt0, nm0 = par_inputs(cams[0], dev)
+    # size the ranks' raw capacity and the exchange's buckets by a probe of
+    # the steps' cameras at twice the single-device capacity (a rank's
+    # need is its half's, and the halves differ)
+    probe_cfg = cfg._replace(k_cap=2 * cfg.k_cap)
+    probes = []
+    with torch.no_grad():
+        for ci in PAR_CAMS:
+            rec, camp = {}, cams[ci].device_params(dev)
+            _, _, (dropped, needed, needed_exch) = tile_render_local(
+                make_tile_plan(PAR_D, camp, probe_cfg), camp, probe_cfg, 3,
+                tcomm, *field_arrays(state[0], 3), record=rec)
+            probes.append({"cam": ci, "needed": int(needed),
+                           "needed_exch": int(needed_exch),
+                           "dropped": int(dropped), "bucket_sizes": [
+                               int(x) for x in rec["bucket_sizes"]]})
+    del rec
+    cfg = cfg._replace(k_cap=r512(max(p["needed"] for p in probes) * 1.05))
+    k_exch = r512(max(p["needed_exch"] for p in probes) * 1.05)
+    plan = make_tile_plan(PAR_D, cam0, cfg, k_exch)
+    out["exchange"] = {"probes": probes, "k_cap": cfg.k_cap,
+                       "k_loc": plan.k_loc, "k_exch": k_exch,
+                       "k_blend": plan.k_blend}
+
+    # the sharded renders of camera 0 against the single-device render
+    ref = {k: v.to(dev) for k, v in
+           torch.load(tmp / "render.pt", weights_only=True).items()}
+    r = par_renders(scene.gaussians, cam0,
+                    cfg._replace(k_pad=targets["k_pad_nosat"]), gm, tm)
+    out["renders_equal"] = {"gauss": equal_to(ref, r["gauss"]),
+                            "tile": equal_to(ref, r["tile"]),
+                            "tile_dropped": r["tile_dropped"]}
+    del r, ref
+    out["kernel_checks"] = par_kernel_checks(plan, cam0, gt0, nm0, cfg,
+                                             tcfg.opt, tcomm, state[0])
+    torch.cuda.empty_cache()
+    step = make_tp_train_step(tm, tcfg.opt, cfg, float(scene.cameras_extent),
+                              cam0, use_normal_loss=True, k_exch=k_exch)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, ms, m = par_tp_steps(step, state, cams, dev)
+    out["tp"] = {"ms": ms, "metrics": m, "launches": counts(counters),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    d1 = torch.load(tmp / f"tp_d1_block{rank}.pt", weights_only=True)
+    out["tp"]["mu_gap_d1"] = mu_gap(moments(state[1]),
+                                    {k: v.to(dev) for k, v in d1.items()})
+    del state, step, d1
+    torch.cuda.empty_cache()
+
+    # DP: the whole field on each rank, 2 cameras a step
+    trainer = Trainer(tcfg, scene, raster_cfg=cfg, device=dev,
+                      dp_devices=PAR_D, comm=comm)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = par_trainer_steps(trainer, cams, explicit=False)
+    st = trainer.state
+    sums = C.all_gather(C.checksum(
+        [getattr(st.field, k) for k in optim.PARAM_LEAVES]
+        + [st.opt[x][k] for x in ("mu", "nu") for k in optim.PARAM_LEAVES]
+        + [st.stats.xyz_gradient_accum, st.stats.denom,
+           st.stats.max_radii2d])[None], comm)
+    out["dp"] = {"ms": ms, "launches": counts(counters),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "checksums": sums.cpu().tolist(), "loss": losses}
+    return out
+
+
+def parallel_phase(dev, card) -> dict:
+    """Multi-device training at full width (see phase 14)."""
+    import torch.distributed as dist
+    from vegs_torch import optim
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.gaussians import DensifyStats
+    from vegs_torch.ops.rasterize import RasterizeConfig
+    from vegs_torch.parallel import launch
+    from vegs_torch.parallel.gauss_sharded import (make_gauss_mesh,
+                                                   sharded_state_bytes)
+    from vegs_torch.parallel.mesh import make_mesh
+    from vegs_torch.parallel.tile_sharded import make_tile_mesh
+    from vegs_torch.parallel.tp_trainer import (make_tp_train_step,
+                                                shard_train_state)
+    from vegs_torch.render import render
+    from vegs_torch.train import Trainer
+
+    counters = main_counters()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        t0 = time.perf_counter()
+        scene, targets = par_scene(tmp / "model", dev)
+        cams = scene.getTrainCameras()
+        cfg = RasterizeConfig(k_cap=targets["k_cap"], k_pad=targets["k_pad"])
+        torch.save(targets, tmp / "targets.pt")
+        tcfg = VegsConfig()
+        extent = float(scene.cameras_extent)
+        setup_s = time.perf_counter() - t0
+
+        # -- D = 1 under NCCL, in this process -----------------------------
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv_d1",
+                                world_size=1, rank=0)
+        try:
+            comm = make_mesh(1).comm()
+            transport = comm.transport(dev)
+
+            def trainer(**kw):
+                sc = copy.copy(scene)
+                sc.gaussians = clone_field(scene.gaussians)
+                return Trainer(tcfg, sc, raster_cfg=cfg, device=dev, **kw)
+
+            single, mid = trainer(), {}
+            single_ms, single_loss = par_trainer_steps(single, cams, mid=mid)
+            mu_single = moments(single.state.opt)
+            params_single = [getattr(single.state.field, k)
+                             for k in optim.PARAM_LEAVES]
+            control = mu_gap(mid, mu_single)
+            del single
+            # the floor: the same single-device steps again
+            again = trainer()
+            par_trainer_steps(again, cams)
+            floor = mu_gap(moments(again.state.opt), mu_single)
+            del again
+
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            dp = trainer(dp_devices=1, comm=comm)
+            dp_ms, dp_loss = par_trainer_steps(dp, cams)
+            dp_launches = counts(counters)
+            dp_peak = torch.cuda.max_memory_allocated()
+            dp_gap = mu_gap(moments(dp.state.opt), mu_single)
+            dp_bits = all(torch.equal(getattr(dp.state.field, k), p)
+                          for k, p in zip(optim.PARAM_LEAVES, params_single))
+            del dp, params_single
+
+            with torch.inference_mode():
+                ro = render(cams[0], scene.gaussians,
+                            config=cfg._replace(forward_only=True))
+                ref = {"rgb": ro.rgb, "depth": ro.depth, "alpha": ro.alpha}
+            torch.save({k: v.cpu() for k, v in ref.items()},
+                       tmp / "render.pt")
+            for c in counters.values():
+                c.launches = 0
+            r1 = par_renders(scene.gaussians, cams[0].device_params(dev),
+                             cfg._replace(k_pad=targets["k_pad_nosat"]),
+                             make_gauss_mesh(1), make_tile_mesh(1))
+            render_launches = counts(counters)
+            renders_equal = {"gauss": equal_to(ref, r1["gauss"]),
+                             "tile": equal_to(ref, r1["tile"])}
+            del r1, ref, ro
+
+            tm = make_tile_mesh(1)
+            state = shard_train_state(tm, clone_field(scene.gaussians),
+                                      optim.adam_init(scene.gaussians),
+                                      DensifyStats.zeros(
+                                          scene.gaussians.capacity, dev))
+            step = make_tp_train_step(tm, tcfg.opt, cfg, extent,
+                                      cams[0].device_params(dev),
+                                      use_normal_loss=True)
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            state, tp_ms, tp_m = par_tp_steps(step, state, cams, dev)
+            tp_launches = counts(counters)
+            tp_peak = torch.cuda.max_memory_allocated()
+            mu_tp = moments(state[1])
+            tp_gap = mu_gap(mu_tp, mu_single)
+            half = scene.gaussians.capacity // PAR_D
+            for r in range(PAR_D):
+                torch.save({k: v[r * half:(r + 1) * half].cpu()
+                            for k, v in mu_tp.items()},
+                           tmp / f"tp_d1_block{r}.pt")
+            del state, step, mu_tp
+        finally:
+            dist.destroy_process_group()
+        d1 = {"transport": transport, "setup_s": setup_s,
+              "k_cap": cfg.k_cap, "k_pad": cfg.k_pad,
+              "need_raw": targets["need_raw"],
+              "single_ms": single_ms, "dp_ms": dp_ms, "tp_ms": tp_ms,
+              "single_loss": single_loss, "dp_loss": dp_loss,
+              "dp_mu_gap": dp_gap, "dp_bit_equal": dp_bits,
+              "tp_mu_gap": tp_gap, "floor_mu_gap": floor,
+              "control_mu_gap": control, "limit": PAR_MU_RTOL,
+              "renders_equal": renders_equal, "tp_metrics": tp_m,
+              "launches": {"dp": dp_launches, "renders": render_launches,
+                           "tp": tp_launches},
+              "max_memory_allocated": {"dp": dp_peak, "tp": tp_peak},
+              "state_bytes": sharded_state_bytes(scene.gaussians, 1)}
+        emit("parallel_d1", card=card, **d1)
+        hold("DP D=1 moments against the single-device step", dp_gap,
+             PAR_MU_RTOL, control)
+        hold("TP D=1 moments against the single-device step", tp_gap,
+             PAR_MU_RTOL, control)
+        del mu_single, mid, scene, cams
+        torch.cuda.empty_cache()
+
+        # -- D = 2: two gloo-host ranks sharing the card --------------------
+        t1 = time.perf_counter()
+        ranks = launch.spawn(_parallel_rank, PAR_D, str(tmp), dev.type,
+                             backend="gloo", init_file=tmp / "rdv_d2")
+        d2_s = time.perf_counter() - t1
+    for r in ranks:
+        kc = r.pop("kernel_checks")
+        if kc is not None:
+            emit("parallel_kernels", card=card, transport=r["transport"],
+                 scene="376x1408, 2,233,571 Gaussians, rank 0 of 2, first "
+                       "tile-sharded step", **kc)
+            res["kernel_checks"] = kc
+        emit("parallel_d2", **r)
+    for r in ranks:
+        if not all(all(v.values()) for v in (r["renders_equal"]["gauss"],
+                                             r["renders_equal"]["tile"])):
+            raise AssertionError(f"rank {r['rank']}: sharded render differs "
+                                 f"from the single-device one: {r}")
+        if r["tp"]["metrics"]["num_dropped"] or r["renders_equal"][
+                "tile_dropped"]:
+            raise AssertionError(f"rank {r['rank']} dropped instances")
+        hold(f"TP D=2 rank {r['rank']} moments against TP D=1",
+             r["tp"]["mu_gap_d1"], PAR_MU_RTOL, control)
+        sums = r["dp"]["checksums"]
+        if any(s != sums[0] for s in sums):
+            raise AssertionError(f"replicated state differs across ranks: "
+                                 f"{sums}")
+    if not all(all(v.values()) for v in renders_equal.values()):
+        raise AssertionError(f"D=1 sharded renders differ: {renders_equal}")
+    launches = {k: dp_launches[k] + render_launches[k] + tp_launches[k]
+                + sum(r["tp"]["launches"][k] + r["dp"]["launches"][k]
+                      for r in ranks) for k in counters}
+    for k, n in launches.items():
+        if not n:
+            raise AssertionError(f"{k} never launched on the parallel paths")
+    if min(dp_launches["K4"], *(r["dp"]["launches"]["K4"] for r in ranks)) < 1:
+        raise AssertionError("K4 not launched in a DP step")
+    res.update(d1=d1, ranks=ranks, launches=launches, d2_s=d2_s)
+    emit("parallel", card=card, d2_s=d2_s, launches=launches,
+         transports={"d1": transport, "d2": ranks[0]["transport"]})
+    return res
+
+
 def kernel_times(kernel, plain, library) -> dict:
     """The card's own ms per call (torch.profiler: the summed durations of
     the device operations each call launches, without host gaps) of a
@@ -3365,17 +3884,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
-    # -- 14. the measurement path, on a card freed of the earlier phases ----
+    # -- 14. multi-device training at full width ----------------------------
+    par = parallel_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 15. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
 
-    # -- 15. summary ---------------------------------------------------------
+    # -- 16. summary ---------------------------------------------------------
     launches = {**train["launches"]}
     m1, m2 = perf["M1"], perf["M2"]
     # launches: the static train phase's 8 steps; launches_boxes: the
     # boxes phase's 8 steps; launches_cli: the cli phase's two `main` runs
     # (24 + 12 steps, their reports); launches_tools: the tools phase's
     # `render_sets` (4 trajectories x TOOLS_VIDEO_FRAMES frames);
-    # launches_guide: the guide phase's 12 guided steps (two renders each)
+    # launches_guide: the guide phase's 12 guided steps (two renders each);
+    # launches_parallel: the parallel phase's DP and TP steps and sharded
+    # renders, D = 1 and both D = 2 ranks
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
@@ -3385,7 +3910,8 @@ def main() -> int:
          "launches_boxes": boxes["launches"]["K1"],
          "launches_cli": cli["launches"]["K1"],
          "launches_tools": tools["launches"]["K1"],
-         "launches_guide": guide["launches"]["K1"], "matches_plain": True,
+         "launches_guide": guide["launches"]["K1"],
+         "launches_parallel": par["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -3399,7 +3925,8 @@ def main() -> int:
          "launches_boxes": boxes["launches"]["K2"],
          "launches_cli": cli["launches"]["K2"],
          "launches_tools": tools["launches"]["K2"],
-         "launches_guide": guide["launches"]["K2"], "matches_plain": True,
+         "launches_guide": guide["launches"]["K2"],
+         "launches_parallel": par["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -3415,7 +3942,8 @@ def main() -> int:
          "launches_boxes": boxes["launches"]["K3"],
          "launches_cli": cli["launches"]["K3"],
          "launches_tools": tools["launches"]["K3"],
-         "launches_guide": guide["launches"]["K3"], "matches_plain": True,
+         "launches_guide": guide["launches"]["K3"],
+         "launches_parallel": par["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
@@ -3433,7 +3961,8 @@ def main() -> int:
          "launches_boxes": boxes["launches"]["K4"],
          "launches_cli": cli["launches"]["K4"],
          "launches_tools": tools["launches"]["K4"],
-         "launches_guide": guide["launches"]["K4"], "matches_plain": True,
+         "launches_guide": guide["launches"]["K4"],
+         "launches_parallel": par["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,

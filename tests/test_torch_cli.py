@@ -19,8 +19,10 @@ against vegs_tpu's.
     of it the report's eager renders.
   * The port resumed from the checkpoint at 3 (--start_checkpoint 3)
     restores every leaf of the checkpoint to the bit and reaches 6.
-  * What `main` refuses instead of skipping: --data_parallel resolving to
-    more than one device (ROADMAP item 17), no card without device="cpu".
+  * What `main` refuses instead of skipping: a multi-host run without all
+    of --coordinator_address, --num_processes and --process_id, and no
+    card without device="cpu". (--data_parallel 2 runs since the parallel
+    slice: tests/test_torch_parallel_cli.py.)
     (A set VEGS_SD_CHECKPOINT now builds diffusion guidance:
     tests/test_torch_guidance.py.)
   * The JAX report cannot render a KITTI-360 frame with boxes
@@ -211,10 +213,13 @@ def test_resumed_main_restores_the_checkpoint_and_reaches_the_end(runs):
 
 def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
     argv = _argv(str(tmp_path / "nowhere"), tmp_path / "m")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ttrain.main(argv + ["--data_parallel", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # nothing tells a program of a cluster: a multi-host rank needs all
+    # three flags
+    with pytest.raises(ValueError, match="--process_id"):
         ttrain.main(argv + ["--coordinator_address", "localhost:1"],
+                    device="cpu")
+    with pytest.raises(ValueError, match="--coordinator_address"):
+        ttrain.main(argv + ["--num_processes", "2", "--process_id", "0"],
                     device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -12,7 +12,10 @@ layout; K1 |d| <= 1e-5 + 1e-4 |ref| outside pixels
 whose stop index differs, those at most 0.1% of the pixels; K2 and K3 and
 the training step's gradients as stated in their tests, each limit set
 from the readings on an H100 (PERF.md); M2 bit-identical to its plain
-version; M1 within 1e-8 of the sum of |x|. The tools: the tiny DPT's
+version; M1 within 1e-8 of the sum of |x|. The parallel paths (D = 1
+under NCCL, D = 2 gloo-host ranks sharing the card; bodies in
+tests/torch_parallel_workers.py): the sharded renders equal to the bit to
+`rasterize`, one TP step's moments within TP_MU_RTOL of one device's. The tools: the tiny DPT's
 crop and one tiny LoRA update, card against CPU, with the limits and
 controls stated beside them.
 
@@ -890,3 +893,48 @@ def test_lora_update_card_matches_cpu(cuda):
           f", control {c_share:.4f}")
     assert worst <= 2 * LORA_LR
     assert share <= LORA_SHARE < c_share
+
+
+# -- multi-device paths (vegs_torch.parallel) ----------------------------------
+# the tile-sharded TP step's moments against one single-device step's: the
+# same sums in another order (the exchange, the image gather's backward)
+TP_MU_RTOL = 1e-4
+
+
+def _check_parallel(results, transport):
+    import numpy as np
+
+    for r in results:
+        assert r["transport"] == transport
+        assert r["sat_cull"]  # the reference render is the main path's
+        assert all(r["gauss"]) and all(r["tile"]), r
+        assert r["tile_dropped"] == 0 and r["tp_dropped"] == 0
+        assert r["denom_equal"]
+        np.testing.assert_allclose(r["tp_loss"], r["loss"], rtol=1e-5)
+        print(f"{transport}: TP moments against one device: "
+              f"{r['tp_mu_gap']:.3e}")
+        assert r["tp_mu_gap"] <= TP_MU_RTOL
+
+
+def test_parallel_nccl_single_rank(cuda, tmp_path):
+    """A world of one under NCCL: the sharded renders equal the
+    single-device render to the bit, the TP step the single-device step."""
+    import torch_parallel_workers as workers
+    from vegs_torch.parallel import launch
+
+    _check_parallel(launch.spawn(workers.gpu_sharded, 1, "nccl",
+                                 backend="nccl",
+                                 init_file=tmp_path / "rendezvous"), "nccl")
+
+
+def test_parallel_gloo_host_pair(cuda, tmp_path):
+    """Two gloo ranks sharing card 0 (every collective through the host):
+    the sharded renders equal the single-device render to the bit, each
+    rank's TP rows the single-device step's."""
+    import torch_parallel_workers as workers
+    from vegs_torch.parallel import launch
+
+    _check_parallel(launch.spawn(workers.gpu_sharded, 2, "gloo",
+                                 backend="gloo",
+                                 init_file=tmp_path / "rendezvous"),
+                    "gloo-host")

@@ -1,0 +1,78 @@
+"""`python -m vegs_torch.train --data_parallel 2` on the CPU against the JAX
+CLI's `--data_parallel 2`, on the toy KITTI-360 root of
+tests/test_torch_loaders.py (4 frames of 48x64 stereo, one vehicle box;
+--eval, 6 iterations of 2 cameras, densification off, no report).
+
+The port's `main` starts 2 gloo ranks (`parallel.launch.spawn`); rank 0
+reads the scene first and alone writes the PLYs, cfg_args.json and
+metrics.jsonl. The JAX CLI runs its shard_map step on 2 of the virtual CPU
+devices (tests/conftest.py). Tolerance: every column of the final static
+and instance PLYs within 1e-4, as the one-device CLI test
+(tests/test_torch_cli.py: float32 sums in another order through the normal
+init and six Adam steps).
+"""
+
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from tests.test_torch_cli import PLY_ATOL, _ply
+from tests.test_torch_loaders import CAR, N_FRAMES, SEQ, START, \
+    toy_kitti360_root
+from vegs_torch import train as ttrain
+
+ITERS = 6
+
+
+def _argv(root, model_path, *extra):
+    return ["--source_path", str(root), "--model_path", str(model_path),
+            "--data_type", "kitti360", "--seq", SEQ,
+            "--start_frame", str(START), "--end_frame", str(START + N_FRAMES),
+            "--eval", "--iterations_override", str(ITERS),
+            "--test_iterations", "100", "--densify_from_iter", "100",
+            "--data_parallel", "2", "--k_cap", "8192", *extra]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    from vegs_tpu.train import main as jmain
+
+    base = tmp_path_factory.mktemp("cli_dp")
+    root = toy_kitti360_root(base / "root")
+    cwd, stdout = os.getcwd(), sys.stdout
+    os.environ.pop("VEGS_SD_CHECKPOINT", None)
+    os.chdir(base)   # the readers' .cache/ goes here
+    try:
+        got = ttrain.main(_argv(root, base / "port"), device="cpu")
+        sys.stdout = stdout
+        jmain(_argv(root, base / "jax", "--backend", "dense"))
+    finally:
+        sys.stdout = stdout
+        os.chdir(cwd)
+    return got, base
+
+
+def test_main_data_parallel_matches_jax(runs):
+    got, base = runs
+    assert got is None   # the ranks ran in their own processes
+    rel = [Path("point_cloud") / f"iteration_{ITERS}" / "point_cloud.ply",
+           Path(f"instance_{CAR}") / "point_cloud" / f"iteration_{ITERS}"
+           / "point_cloud.ply"]
+    for r in rel:
+        p, j = _ply(base / "port" / r), _ply(base / "jax" / r)
+        assert sorted(p) == sorted(j) and len(p["x"]) == len(j["x"])
+        for col in j:
+            np.testing.assert_allclose(p[col], j[col], rtol=0, atol=PLY_ATOL,
+                                       err_msg=f"{r} {col}")
+
+
+def test_main_data_parallel_writes_from_rank_zero_alone(runs):
+    _, base = runs
+    port = base / "port"
+    assert (port / "cfg_args.json").exists()
+    assert (port / "metrics.jsonl").exists()
+    assert sorted(p.name for p in (port / "point_cloud").iterdir()) == \
+        [f"iteration_{ITERS}"]

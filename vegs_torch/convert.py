@@ -102,6 +102,45 @@ def train_state_to_numpy(state) -> dict:
     }
 
 
+def shard_state_numpy(arrays: dict, index: int, n: int) -> dict:
+    """Row block `index` of `n` of a (field, Adam, stats) numpy tree in
+    `train_state_from_numpy`'s layout (the JAX TrainState's leaves): every
+    per-Gaussian leaf cut on its first axis, the Adam count and the step
+    kept whole. The rows must split evenly (pad the capacity)."""
+    def rows(a):
+        a = np.asarray(a)
+        if a.shape[0] % n:
+            raise ValueError(f"{a.shape[0]} rows do not split over {n}")
+        m = a.shape[0] // n
+        return a[index * m:(index + 1) * m].copy()
+
+    out = {"field": {k: rows(v) for k, v in arrays["field"].items()},
+           "opt": {m: {k: rows(v) for k, v in arrays["opt"][m].items()}
+                   for m in ("mu", "nu")},
+           "stats": {k: rows(v) for k, v in arrays["stats"].items()}}
+    out["opt"]["count"] = arrays["opt"]["count"]
+    if "step" in arrays:
+        out["step"] = arrays["step"]
+    return out
+
+
+def unshard_state_numpy(blocks: list) -> dict:
+    """Inverse of `shard_state_numpy`: the ranks' blocks, in rank order,
+    put back together (the count and step from block 0)."""
+    def cat(get):
+        return np.concatenate([np.asarray(get(b)) for b in blocks])
+
+    b0 = blocks[0]
+    out = {"field": {k: cat(lambda b: b["field"][k]) for k in b0["field"]},
+           "opt": {m: {k: cat(lambda b: b["opt"][m][k])
+                       for k in b0["opt"][m]} for m in ("mu", "nu")},
+           "stats": {k: cat(lambda b: b["stats"][k]) for k in b0["stats"]}}
+    out["opt"]["count"] = b0["opt"]["count"]
+    if "step" in b0:
+        out["step"] = b0["step"]
+    return out
+
+
 def box_deltas_from_numpy(arrays: dict, device=None) -> BoxDeltas:
     """{delta_r, delta_s, delta_t} (numpy) -> BoxDeltas."""
     dev = resolve_device(device)

@@ -112,6 +112,14 @@ def adam_step(field, grads: dict, state: dict, lrs: FieldLRs,
     state["count"] = count
 
 
+def leaf_grads(field) -> dict:
+    """The gradient of each parameter leaf after a backward, zeros where
+    none flowed."""
+    return {k: torch.zeros_like(getattr(field, k))
+            if getattr(field, k).grad is None else getattr(field, k).grad
+            for k in PARAM_LEAVES}
+
+
 @dataclasses.dataclass
 class TensorAdamState:
     """Adam moments of a dict of tensors, and the step count (an int32

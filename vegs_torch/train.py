@@ -40,8 +40,17 @@ square crop of it goes through `losses.sd_guidance.SDGuidance` (the VAE
 encoder's backward carries the diffusion prior's gradient into the
 render).
 
-Not ported yet: data parallelism (`--data_parallel` resolving to more
-than one device raises).
+Data parallelism (vegs_tpu/train.py:115-402, :811-946): with a `comm`
+(`parallel.comm.Comm`, one rank a camera) the same step runs on every rank
+against the replicated field, and the ranks meet where the JAX step's
+`shard_map` reduces: the static gradients (plus the replicated `g_extra`,
+added before the mean) averaged over the ranks; each box instance's
+gradients summed and divided by the number of ranks whose frame holds it;
+the densify statistics of every view added (norms, visibility) or maxed
+(radii); the losses averaged, the capacity signals maxed. The Adam steps
+then run the same on every rank. `Trainer(dp_devices=D)` draws D cameras
+a step from the host rng on every rank and trains camera `rank`; `main
+--data_parallel D` starts the ranks (`parallel.launch.spawn`).
 """
 
 from __future__ import annotations
@@ -166,13 +175,17 @@ class BoxStep:
     box2world: torch.Tensor   # [4, 4]
     deltas: BoxDeltas
     delta_opt: optim.TensorAdamState
+    active: bool = True       # in this rank's frame (data parallel: a box
+    #                           of another rank's frame is carried, not
+    #                           rendered, and adds zero gradient here)
 
 
 def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
                active_sh_degree: int, bg, *, opt_cfg, raster_cfg: RasterizeConfig,
                spatial_scale: float, sh_total_degree: int = 3, boxes=(),
                box_cfg=None, guidance: Optional[GuidedView] = None,
-               perceptual: Optional[Perceptual] = None):
+               perceptual: Optional[Perceptual] = None, comm=None,
+               g_extra: Optional[dict] = None):
     """One step -> (state, metrics, boxes). The fields' parameters and Adam
     moments are updated in place; each `BoxStep` of `boxes` comes back with
     new statistics, deltas and delta Adam state (`box_cfg`: boxmodel_lr and
@@ -181,18 +194,29 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
     guidance loss of the static field's augmented view at `state.step`
     (`guidance_loss`). Metrics are 0-d tensors on the field's device; the
     terms add `perceptual_loss`, and `guidance_loss` with the augmented
-    render's `aug_num_dropped`, `aug_num_needed` and `aug_num_needed_raw`."""
+    render's `aug_num_dropped`, `aug_num_needed` and `aug_num_needed_raw`.
+
+    `g_extra` (a gradient per static leaf) is added to the static
+    gradients. With `comm` (data parallel, vegs_tpu/train.py:231-339) this
+    rank renders `cam` with its active boxes (`boxes` is the union of the
+    ranks' instances, the same list on every rank); the static gradients
+    (g_extra added first) and the losses are averaged over the ranks, the
+    capacity signals maxed, every box's gradients summed and divided by the
+    ranks where it is active, the densify contributions added (norms,
+    visibility) and maxed (radii); each rank steps its active boxes'
+    residuals alone."""
     field = state.field
+    live = [b for b in boxes if b.active]
     fields = [field] + [b.field for b in boxes]
     for f in fields:
         for p in f.parameters():
             p.grad = None
     deltas = [BoxDeltas(**{k: v.detach().clone().requires_grad_(True)
                            for k, v in b.deltas.as_dict().items()})
-              for b in boxes]
+              for b in live]
     insts = [BoxInstance(b.field, b.box2world, d)
-             for b, d in zip(boxes, deltas)]
-    bounds = _bounds([f.capacity for f in fields])
+             for b, d in zip(live, deltas)]
+    bounds = _bounds([field.capacity] + [b.field.capacity for b in live])
     m2d_offset = torch.zeros((bounds[-1], 2), dtype=torch.float32,
                              device=field.means.device, requires_grad=True)
     loss, ll1, nloss, out = loss_fn(
@@ -218,11 +242,21 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
                      aug_num_needed_raw=aug.num_needed_raw)
     loss.backward()
 
-    def grads_of(f):
-        return {k: torch.zeros_like(getattr(f, k)) if getattr(f, k).grad is None
-                else getattr(f, k).grad for k in optim.PARAM_LEAVES}
+    g_static = optim.leaf_grads(field)
+    if g_extra is not None:
+        g_static = {k: g_static[k] + g_extra[k] for k in g_static}
+    metrics = {"loss": loss.detach(), "l1": ll1.detach(),
+               "normal_loss": nloss.detach()}
+    caps = {"num_dropped": out.num_dropped, "num_needed": out.num_needed,
+            "num_needed_raw": out.num_needed_raw}
+    if comm is not None:
+        from .parallel.comm import pmax_tree, psum_tree
 
-    optim.adam_step(field, grads_of(field), state.opt,
+        n = comm.size
+        g_static = {k: v / n for k, v in psum_tree(g_static, comm).items()}
+        metrics = {k: v / n for k, v in psum_tree(metrics, comm).items()}
+        caps = pmax_tree(caps, comm)
+    optim.adam_step(field, g_static, state.opt,
                     optim.field_lrs(opt_cfg, spatial_scale, state.step))
     g_m2d = (m2d_offset.grad if m2d_offset.grad is not None
              else torch.zeros_like(m2d_offset))
@@ -235,31 +269,134 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
         a, b = bounds[i], bounds[i + 1]
         return norm[a:b], vis[a:b], rad[a:b]
 
-    stats = densify.apply_stats(state.stats, *part(0))
+    # every part's contributions, zero for a box this rank does not render
+    contribs = [part(0)]
+    live_i = iter(range(1, len(live) + 1))
+    for b in boxes:
+        if b.active:
+            contribs.append(part(next(live_i)))
+        else:
+            z = torch.zeros(b.field.capacity, dtype=torch.float32,
+                            device=field.means.device)
+            contribs.append((z, z, z))
+    if comm is not None:
+        contribs = _reduce_contribs(contribs, comm)
+    stats = densify.apply_stats(state.stats, *contribs[0])
     new_boxes = []
     if boxes:
         # box fields live in the unit canonical box: spatial scale 1, the
         # means' rate times box_lr_mult, the static step counter
         box_lrs = optim.field_lrs(opt_cfg, 1.0, state.step,
                                   xyz_lr_mult=opt_cfg.box_lr_mult)
-        for i, (b, d) in enumerate(zip(boxes, deltas), start=1):
-            optim.adam_step(b.field, grads_of(b.field), b.opt, box_lrs)
-            g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # the NaN guard
-                   for k, v in d.as_dict().items()}
-            nd, nopt = optim.tensor_adam_step(
-                {k: v.detach() for k, v in d.as_dict().items()}, g_d,
-                b.delta_opt, box_cfg.boxmodel_lr)
-            new_boxes.append(dataclasses.replace(
-                b, stats=densify.apply_stats(b.stats, *part(i)),
-                deltas=BoxDeltas(**nd), delta_opt=nopt))
-    metrics = {
-        "loss": loss.detach(), "l1": ll1.detach(),
-        "normal_loss": nloss.detach(), "num_dropped": out.num_dropped,
-        "num_needed": out.num_needed, "num_needed_raw": out.num_needed_raw,
-        **extra,
-    }
+        g_boxes = [optim.leaf_grads(b.field) for b in boxes]
+        if comm is not None:
+            g_boxes = _box_grad_means(g_boxes, boxes, comm)
+        live_deltas = iter(deltas)
+        for b, g, c in zip(boxes, g_boxes, contribs[1:]):
+            optim.adam_step(b.field, g, b.opt, box_lrs)
+            new = dataclasses.replace(b, stats=densify.apply_stats(b.stats,
+                                                                   *c))
+            if b.active:  # this rank's frame's residual, stepped here only
+                d = next(live_deltas)
+                g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # the NaN guard
+                       for k, v in d.as_dict().items()}
+                nd, nopt = optim.tensor_adam_step(
+                    {k: v.detach() for k, v in d.as_dict().items()}, g_d,
+                    b.delta_opt, box_cfg.boxmodel_lr)
+                new = dataclasses.replace(new, deltas=BoxDeltas(**nd),
+                                          delta_opt=nopt)
+            new_boxes.append(new)
+    metrics = {**metrics, **caps, **extra}
     return (TrainState(field=field, opt=state.opt, stats=stats,
                        step=state.step + 1), metrics, new_boxes)
+
+
+def _pack_delta(b: BoxStep) -> torch.Tensor:
+    """A box's residual and its Adam state as one float32 row [31]."""
+    o = b.delta_opt
+    parts = [b.deltas.as_dict()[k] for k in BoxDeltas.LEAVES]
+    parts += [o.mu[k] for k in BoxDeltas.LEAVES]
+    parts += [o.nu[k] for k in BoxDeltas.LEAVES]
+    dev = parts[0].device
+    parts.append(o.count.to(device=dev, dtype=torch.float32).reshape(1))
+    return torch.cat([p.reshape(-1).float() for p in parts])
+
+
+def _unpack_delta(row: torch.Tensor):
+    """Inverse of `_pack_delta` -> (BoxDeltas, TensorAdamState)."""
+    sizes = (4, 3, 3)
+    d = dict(zip(BoxDeltas.LEAVES, row[:10].split(sizes)))
+    mu = dict(zip(BoxDeltas.LEAVES, row[10:20].split(sizes)))
+    nu = dict(zip(BoxDeltas.LEAVES, row[20:30].split(sizes)))
+    count = torch.tensor(int(row[30]), dtype=torch.int32)
+    return BoxDeltas(**{k: v.clone() for k, v in d.items()}), \
+        optim.TensorAdamState(mu={k: v.clone() for k, v in mu.items()},
+                              nu={k: v.clone() for k, v in nu.items()},
+                              count=count)
+
+
+def _reduce_contribs(contribs: list, comm) -> list:
+    """Every part's (norm, vis, radii) summed (norm, vis) and maxed (radii)
+    over the ranks, in two collectives."""
+    from .parallel.comm import pmax, psum
+
+    sizes = [c[0].shape[0] for c in contribs]
+    summed = psum(torch.cat([torch.cat([c[0] for c in contribs]),
+                             torch.cat([c[1] for c in contribs])]), comm)
+    rad = pmax(torch.cat([c[2] for c in contribs]), comm)
+    n = sum(sizes)
+    norm, vis = summed[:n].split(sizes), summed[n:].split(sizes)
+    return list(zip(norm, vis, rad.split(sizes)))
+
+
+def _box_grad_means(g_boxes: list, boxes, comm) -> list:
+    """Each box's gradients summed over the ranks and divided by the count
+    of ranks whose frame holds it (vegs_tpu/train.py:300-305): a box seen by
+    2 of D cameras averages over 2, as 2 sequential steps would."""
+    from .parallel.comm import psum, psum_tree
+
+    dev = boxes[0].field.means.device
+    act = psum(torch.tensor([float(b.active) for b in boxes], device=dev),
+               comm)
+    flat = psum_tree({f"{i}/{k}": v for i, g in enumerate(g_boxes)
+                      for k, v in g.items()}, comm)
+    return [{k: flat[f"{i}/{k}"] / torch.clamp(act[i], min=1.0)
+             for k in optim.PARAM_LEAVES} for i in range(len(boxes))]
+
+
+def _param_grads(loss, field: GaussianField) -> dict:
+    """d loss / d each static leaf, zeros where none flows."""
+    params = [getattr(field, k) for k in optim.PARAM_LEAVES]
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g
+            for k, p, g in zip(optim.PARAM_LEAVES, params, grads)}
+
+
+def guidance_grads(field: GaussianField, guided: GuidedView, iteration: int,
+                   bg, *, raster_cfg: RasterizeConfig, sh_degree: int = 3):
+    """(loss, gradient per static leaf) of the guidance term alone: the
+    field at every SH band, rendered at the augmented camera, its crop
+    scored at `iteration` (vegs_tpu/train.py:405 `make_guidance_grad_fn`,
+    which the data-parallel step adds through `g_extra`)."""
+    loss, _ = guidance_loss(field, guided, iteration, sh_degree, bg,
+                            raster_cfg=raster_cfg, sh_total_degree=sh_degree)
+    return loss.detach(), _param_grads(loss, field)
+
+
+def perceptual_grads(field: GaussianField, perceptual: Perceptual,
+                     cam: CameraParams, gt, bg, *,
+                     raster_cfg: RasterizeConfig, sh_degree: int = 3):
+    """(loss, gradient per static leaf) of lam * the VGG perceptual loss of
+    the field's render at every SH band against `gt`, without boxes
+    (vegs_tpu/train.py:432 `make_perceptual_grad_fn`, whose loss is also
+    lam times the perceptual loss)."""
+    from .losses.perceptual import vgg_perceptual_loss
+
+    out = _run(cam, field_arrays(field, sh_degree), bg=bg, scale_modifier=1.0,
+               override_color=None, sh_degree=sh_degree, config=raster_cfg,
+               means2d_offset=None)
+    p_loss = perceptual.lam * vgg_perceptual_loss(perceptual.vgg, out.rgb, gt)
+    return p_loss.detach(), _param_grads(p_loss, field)
 
 
 @dataclasses.dataclass
@@ -272,7 +409,13 @@ class Trainer:
     end_guiding_at_iter), its draws from `guidance_generator`;
     cfg.sd.perceptual_loss adds the VGG perceptual term, with the VGG16
     features from the .npz at $VEGS_VGG_WEIGHTS or a random init (seed
-    0)."""
+    0).
+
+    Data parallel (`dp_devices` > 1, or a `comm`: this rank's
+    `parallel.comm.Comm` of dp_devices ranks; by default the data axis of
+    the running process group): every rank holds the whole state and
+    steps with camera `rank` of the dp_devices cameras that every rank
+    draws alike (`_train_iteration_dp`)."""
 
     cfg: VegsConfig
     scene: Scene
@@ -281,6 +424,8 @@ class Trainer:
     rng_seed: int = 7
     device: object = None
     sd_guidance: object = None
+    dp_devices: int = 1
+    comm: object = None
 
     K_CAP_MIN = 1 << 15            # never shrink below 32k slots
     # Ceiling of both capacities (2^26 slots): the raw stream's per-slot
@@ -293,6 +438,13 @@ class Trainer:
     def __post_init__(self):
         cfg = self.cfg
         self.device = resolve_device(self.device)
+        if self.comm is None and self.dp_devices > 1:
+            from .parallel.mesh import make_mesh
+
+            self.comm = make_mesh(self.dp_devices).comm()
+        if self.comm is not None and self.comm.size != self.dp_devices:
+            raise ValueError(f"dp_devices={self.dp_devices} on a data axis "
+                             f"of {self.comm.size} ranks")
         f = self.scene.gaussians
         if f.means.device.type != self.device.type:
             raise ValueError(f"the scene's field lies on {f.means.device}, "
@@ -466,14 +618,24 @@ class Trainer:
                 delta_opt=self.frame_delta_opts[key]))
         return insts, steps
 
-    def train_iteration(self, it: int, camera=None) -> dict:
-        cam = camera if camera is not None else self._next_camera()
+    def _targets(self, cam):
+        """(gt, normal, normal_valid) of a camera on the device."""
         gt = torch.from_numpy(
             np.asarray(cam.original_image, np.float32)).to(self.device)
         wn = cam.world_normal()
         normal = (torch.from_numpy(np.asarray(wn, np.float32)).to(self.device)
                   if wn is not None else torch.zeros_like(gt))
-        normal_valid = 0.0 if wn is None else 1.0
+        return gt, normal, 0.0 if wn is None else 1.0
+
+    def train_iteration(self, it: int, camera=None) -> dict:
+        if self.comm is not None:
+            # an explicit camera is repeated over the ranks: the mean of D
+            # equal gradients is the camera's gradient, and the densify
+            # statistics count it D times in accum and denom alike
+            cams = None if camera is None else [camera] * self.dp_devices
+            return self._train_iteration_dp(it, cameras=cams)
+        cam = camera if camera is not None else self._next_camera()
+        gt, normal, normal_valid = self._targets(cam)
         frame = int(getattr(cam, "frame", 0))
         insts, box_steps = self._box_steps(frame)
         guided, perceptual = self._step_extras(it, cam)
@@ -494,6 +656,140 @@ class Trainer:
                           metrics["num_needed_raw"])
         self._densify_and_reset(it)
         return metrics
+
+    def _train_iteration_dp(self, it: int, cameras=None) -> dict:
+        """One data-parallel iteration (vegs_tpu/train.py:811-946): D
+        cameras drawn alike on every rank, this rank's (`comm.index`)
+        trained. Box slots are the union of the D frames' instances (at
+        most max_box_slots), in first-seen order. The guidance term (one
+        augmented view of the first camera, in the window) and the
+        perceptual term (the first camera) are computed on rank 0 and
+        broadcast, then added to every rank's static gradient before the
+        mean. Each rank steps its own frame's residuals; they are then
+        all-gathered and written back rank by rank, so on a key two ranks
+        share (an explicit camera repeated) the highest rank's wins, on
+        every rank."""
+        from .parallel.comm import all_gather
+
+        comm, D = self.comm, self.dp_devices
+        cams = (list(cameras) if cameras is not None
+                else [self._next_camera() for _ in range(D)])
+        if len(cams) != D:
+            raise ValueError(f"need {D} cameras, got {len(cams)}")
+        me = comm.index
+        cam = cams[me]
+        gt, normal, normal_valid = self._targets(cam)
+        frames = [int(getattr(c, "frame", 0)) for c in cams]
+        per_cam = [self._frame_boxes(f) for f in frames]
+        union = []
+        for boxes in per_cam:
+            for inst in boxes:
+                if inst in self.box_fields and inst not in union:
+                    union.append(inst)
+        union = union[: self.max_box_slots]
+        mine = per_cam[me]
+        steps = []
+        for inst in union:
+            active = inst in mine
+            key = (frames[me], inst)
+            if active and key not in self.frame_deltas:
+                self.frame_deltas[key] = BoxDeltas.identity(device=self.device)
+                self.frame_delta_opts[key] = optim.tensor_adam_init(
+                    self.frame_deltas[key].as_dict())
+            b2w = (torch.from_numpy(box_matrix(mine[inst]).astype(np.float32))
+                   .to(self.device) if active
+                   else torch.eye(4, device=self.device))
+            deltas = (self.frame_deltas[key] if active
+                      else BoxDeltas.identity(device=self.device))
+            dopt = (self.frame_delta_opts[key] if active
+                    else optim.tensor_adam_init(deltas.as_dict()))
+            steps.append(BoxStep(
+                field=self.box_fields[inst], opt=self.box_opts[inst],
+                stats=self.box_stats[inst], box2world=b2w, deltas=deltas,
+                delta_opt=dopt, active=active))
+
+        extra_metrics, g_extra = self._dp_extras(it, cams[0])
+        self.state, metrics, stepped = train_step(
+            self.state, cam.device_params(self.device), gt, normal,
+            normal_valid, self._active_sh_degree(it), self.bg,
+            opt_cfg=self.cfg.opt, raster_cfg=self.raster_cfg,
+            spatial_scale=self.spatial_scale,
+            sh_total_degree=self.cfg.model.sh_degree, boxes=steps,
+            box_cfg=self.cfg.box, comm=comm, g_extra=g_extra)
+        for inst, b in zip(union, stepped):
+            self.box_stats[inst] = b.stats
+        if union:
+            # every rank's stepped residuals [D, S, 31] (deltas, both Adam
+            # moments, the count), written back in rank order
+            rows = torch.stack([_pack_delta(b) for b in stepped])
+            packed = all_gather(rows[None], comm)
+            for d in range(D):
+                for si, inst in enumerate(union):
+                    if inst in per_cam[d]:
+                        self.frame_deltas[(frames[d], inst)], \
+                            self.frame_delta_opts[(frames[d], inst)] = \
+                            _unpack_delta(packed[d, si])
+        metrics = {k: float(v) for k, v in {**metrics, **extra_metrics}.items()}
+        self._adapt_k_cap(metrics["num_dropped"], metrics["num_needed"],
+                          metrics["num_needed_raw"])
+        self._densify_and_reset(it)
+        return metrics
+
+    def _dp_extras(self, it: int, cam0):
+        """(metrics, g_extra) of the data-parallel step's optional terms,
+        computed on rank 0 and broadcast (a UNet run on two ranks need not
+        give the same bits): in the guidance window one augmented view of
+        the first camera, its crop start drawn over the whole span
+        (vegs_tpu/train.py:904-917; every rank draws, so the host rngs stay
+        alike), scored at iteration `it`; the perceptual term of the first
+        camera's render."""
+        from .parallel.comm import broadcast_tree
+
+        sd = self.cfg.sd
+        deg = self.cfg.model.sh_degree
+        guided = None
+        if (self.sd_guidance is not None
+                and sd.start_guiding_from_iter < it < sd.end_guiding_at_iter):
+            from .scene.cameras import augment_camera
+
+            cam_aug, *_ = augment_camera(cam0, sd, self.rng)
+            span = max(cam_aug.image_width - cam_aug.image_height, 1)
+            crop_start = int(self.rng.integers(0, span))
+            guided = GuidedView(self.sd_guidance,
+                                cam_aug.device_params(self.device),
+                                crop_start, self.guidance_generator)
+        if guided is None and self._vgg is None:
+            return {}, None
+        field = self.state.field
+        zero = {k: torch.zeros_like(getattr(field, k))
+                for k in optim.PARAM_LEAVES}
+        g_extra = dict(zero)
+        metrics = {}
+        if self.comm.index == 0:
+            if guided is not None:
+                metrics["guidance_loss"], g = guidance_grads(
+                    field, guided, it, self.bg, raster_cfg=self.raster_cfg,
+                    sh_degree=deg)
+                g_extra = {k: g_extra[k] + g[k] for k in g_extra}
+            if self._vgg is not None:
+                gt0 = self._targets(cam0)[0]
+                metrics["perceptual_loss"], g = perceptual_grads(
+                    field, Perceptual(self._vgg.requires_grad_(False),
+                                      sd.perceptual_loss_lambda),
+                    cam0.device_params(self.device), gt0, self.bg,
+                    raster_cfg=self.raster_cfg, sh_degree=deg)
+                g_extra = {k: g_extra[k] + g[k] for k in g_extra}
+        else:
+            if guided is not None:
+                metrics["guidance_loss"] = torch.zeros((), device=self.device)
+            if self._vgg is not None:
+                metrics["perceptual_loss"] = torch.zeros((),
+                                                         device=self.device)
+        sent = broadcast_tree({**{f"g/{k}": v for k, v in g_extra.items()},
+                               **{f"m/{k}": v.reshape(()).float()
+                                  for k, v in metrics.items()}}, self.comm)
+        g_extra = {k: sent[f"g/{k}"] for k in optim.PARAM_LEAVES}
+        return {k: sent[f"m/{k}"] for k in metrics}, g_extra
 
     def _densify_and_reset(self, it: int) -> None:
         """Densify and prune, and reset opacities, on the reference's
@@ -721,33 +1017,10 @@ class Trainer:
         return self.metrics_log
 
 
-def main(argv=None, device=None) -> Trainer:
-    """The training CLI, with the JAX CLI's flags: the config groups'
-    flags (`config.parse_config`) and --test_iterations,
-    --save_iterations, --checkpoint_iterations, --start_checkpoint,
-    --iterations_override and --data_parallel. Seeds and timestamps stdout
-    (`safe_state`), reads the scene, runs the normal-prior init, resumes
-    from --start_checkpoint, trains to the last iteration (logging every
-    50th to `model_path/metrics.jsonl`), reports at --test_iterations
-    (`model_path/results`), saves PLYs at --save_iterations and at the end
-    and checkpoints at --checkpoint_iterations. Returns the Trainer.
-
-    With $VEGS_SD_CHECKPOINT set (a local Stable-Diffusion checkpoint in
-    the diffusers layout; the text encoder needs `transformers`) the
-    Trainer gets diffusion guidance (`losses.sd_guidance.build_guidance`),
-    with the per-segment LoRA weights of
-    lora_model_dir/data_type/seq/<start>_<end> when that directory exists.
-
-    Runs on `device` (default: the card). Not ported, and refused rather
-    than skipped: data parallelism over more than one device and
-    multi-host runs (ROADMAP item 17). `model_path` defaults to the
-    working directory, and the KITTI-360 reader writes its point cache to
-    `./.cache`, as the JAX CLI does."""
+def _cli_args(argv):
     import argparse
 
     from .config import parse_config
-    from .utils.general import safe_state
-    from .utils.logging import MetricsLogger
 
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--test_iterations", nargs="+", type=int,
@@ -758,28 +1031,113 @@ def main(argv=None, device=None) -> Trainer:
     ap.add_argument("--start_checkpoint", type=int, default=None)
     ap.add_argument("--iterations_override", type=int, default=None)
     ap.add_argument("--data_parallel", type=int, default=0,
-                    help="camera-batch data parallelism: 0 = all local "
-                         "devices, 1 = single device, N = first N devices")
-    ap.add_argument("--coordinator_address", type=str, default=None)
-    ap.add_argument("--num_processes", type=int, default=None)
-    ap.add_argument("--process_id", type=int, default=None)
+                    help="camera-batch data parallelism: 0 = every local "
+                         "card (one rank on the CPU), 1 = one device, N = "
+                         "N ranks")
+    ap.add_argument("--coordinator_address", type=str, default=None,
+                    help="multi-host: host:port where the ranks meet")
+    ap.add_argument("--num_processes", type=int, default=None,
+                    help="multi-host: ranks in all, one process each")
+    ap.add_argument("--process_id", type=int, default=None,
+                    help="multi-host: this process's rank")
     extra, rest = ap.parse_known_args(argv)
+    return extra, parse_config(rest)
 
-    cfg = parse_config(rest)
+
+def main(argv=None, device=None) -> Optional[Trainer]:
+    """The training CLI, with the JAX CLI's flags: the config groups'
+    flags (`config.parse_config`) and --test_iterations,
+    --save_iterations, --checkpoint_iterations, --start_checkpoint,
+    --iterations_override, --data_parallel, --coordinator_address,
+    --num_processes and --process_id. Seeds and timestamps stdout
+    (`safe_state`), reads the scene, runs the normal-prior init, resumes
+    from --start_checkpoint, trains to the last iteration (logging every
+    50th to `model_path/metrics.jsonl`), reports at --test_iterations
+    (`model_path/results`), saves PLYs at --save_iterations and at the end
+    and checkpoints at --checkpoint_iterations. Returns the Trainer of a
+    one-device run (None when it started ranks).
+
+    With $VEGS_SD_CHECKPOINT set (a local Stable-Diffusion checkpoint in
+    the diffusers layout; the text encoder needs `transformers`) the
+    Trainer gets diffusion guidance (`losses.sd_guidance.build_guidance`),
+    with the per-segment LoRA weights of
+    lora_model_dir/data_type/seq/<start>_<end> when that directory exists.
+
+    Runs on `device` (default: the card). --data_parallel D > 1 starts D
+    local ranks (`parallel.launch.spawn`): one per card under NCCL (D may
+    not exceed the cards), or D processes on the CPU under gloo; 0 means
+    every local card. Multi-host: every process is one rank, started with
+    --coordinator_address host:port, --num_processes (ranks in all) and
+    --process_id (its rank); --data_parallel must then be 0 or the rank
+    count. Rank 0 alone writes the logs, reports, PLYs and checkpoints,
+    and the ranks meet at a barrier after each. `model_path` defaults to
+    the working directory, and the KITTI-360 reader writes its point cache
+    to `./.cache` (rank 0 reads the scene first), as the JAX CLI does."""
+    extra, cfg = _cli_args(argv)
     dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if extra.coordinator_address is not None or extra.num_processes:
+        from .parallel.mesh import initialize_distributed
+
+        n = initialize_distributed(extra.coordinator_address,
+                                   extra.num_processes, extra.process_id,
+                                   backend=backend)
+        if extra.data_parallel not in (0, n):
+            raise ValueError(f"--data_parallel {extra.data_parallel} in a "
+                             f"world of {n} ranks")
+        if dev.type == "cuda":
+            dev = torch.device("cuda", extra.process_id
+                               % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        return _train_main(extra, cfg, dev, n)
     n_local = torch.cuda.device_count() if dev.type == "cuda" else 1
     dp = extra.data_parallel if extra.data_parallel > 0 else n_local
-    if extra.coordinator_address or (extra.num_processes or 1) > 1:
-        raise NotImplementedError("multi-host training is not ported yet "
-                                  "(ROADMAP item 17)")
-    if dp > 1:
-        raise NotImplementedError(
-            f"--data_parallel resolves to {dp} devices; data parallelism is "
-            "not ported yet (ROADMAP item 17): pass --data_parallel 1")
-    safe_state(seed=cfg.model.seed)
+    if dp == 1:
+        return _train_main(extra, cfg, dev, 1)
+    import tempfile
 
+    from .parallel.launch import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_rank_main, dp, list(argv if argv is not None else sys.argv[1:]),
+              dev.type, backend=backend,
+              init_file=Path(tmp) / "rendezvous")
+    return None
+
+
+def _rank_main(rank: int, argv: list, device_type: str) -> None:
+    """One local rank of `main --data_parallel D` (started by `spawn`)."""
+    extra, cfg = _cli_args(argv)
+    dev = (torch.device("cuda", rank) if device_type == "cuda"
+           else torch.device(device_type))
+    import torch.distributed as dist
+
+    _train_main(extra, cfg, dev, dist.get_world_size())
+
+
+def _train_main(extra, cfg, dev, dp: int) -> Trainer:
+    from .utils.general import safe_state
+    from .utils.logging import MetricsLogger
+
+    comm = None
+    if dp > 1 or extra.coordinator_address is not None:
+        from .parallel.mesh import make_mesh
+
+        comm = make_mesh(dp).comm()
+    lead = comm is None or comm.index == 0
+
+    def barrier():
+        if comm is not None:
+            comm.barrier()
+
+    safe_state(seed=cfg.model.seed)
+    if not lead:
+        barrier()  # rank 0 reads the scene (and writes ./.cache) first
     scene = Scene(cfg.model, cfg.data, cfg.box, device=dev)
-    trainer = Trainer(cfg, scene, rng_seed=cfg.model.seed, device=dev)
+    if lead:
+        barrier()
+    trainer = Trainer(cfg, scene, rng_seed=cfg.model.seed, device=dev,
+                      dp_devices=dp, comm=comm)
     sd_dir = os.environ.get("VEGS_SD_CHECKPOINT")
     if sd_dir:
         from .losses.sd_guidance import build_guidance
@@ -797,24 +1155,36 @@ def main(argv=None, device=None) -> Trainer:
 
     total = extra.iterations_override or cfg.opt.iterations
     start = int(trainer.state.step)
-    logger = MetricsLogger(cfg.model.model_path)
-    cfg.save(Path(cfg.model.model_path) / "cfg_args.json")
+    logger = None
+    if lead:
+        logger = MetricsLogger(cfg.model.model_path)
+        cfg.save(Path(cfg.model.model_path) / "cfg_args.json")
+    barrier()
     t0 = time.time()
     for it in range(start + 1, total + 1):
         m = trainer.train_iteration(it)
-        if it % 50 == 0:
+        if it % 50 == 0 and lead:
             m.update(iter=it, elapsed_s=round(time.time() - t0, 1),
                      n_active=int(trainer.state.field.num_active()))
             logger.log(m, step=it)
         if it in extra.test_iterations:
-            logger.log(trainer.training_report(
-                it, out_dir=Path(cfg.model.model_path) / "results"), step=it)
+            if lead:
+                logger.log(trainer.training_report(
+                    it, out_dir=Path(cfg.model.model_path) / "results"),
+                    step=it)
+            barrier()
         if it in extra.save_iterations:
-            _save(trainer, it)
+            if lead:
+                _save(trainer, it)
+            barrier()
         if it in extra.checkpoint_iterations:
-            trainer.save_checkpoint(it)
-    _save(trainer, total)
-    logger.close()
+            if lead:
+                trainer.save_checkpoint(it)
+            barrier()
+    if lead:
+        _save(trainer, total)
+        logger.close()
+    barrier()
     return trainer
 
 
