@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port (vegs_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
+    python3 chip_smoke.py --quality-out QUALITY_TORCH.md   # and keep the
+                                   # quality phase's readings in the report
 
 Phases, one JSON line each; any failure exits non-zero:
   1. device   -- a CUDA card is present (prints nvidia-smi's name and power
@@ -215,8 +217,36 @@ Phases, one JSON line each; any failure exits non-zero:
                  launches, each of K1-K4 at least once, K4 in the DP
                  steps). A D = 2 reading on one card measures the sharded
                  code, not scaling across cards;
- 15. perf     -- the measurement path (`vegs_torch.perf`), after the
-                 guide phase's tensors are freed: M1 (block sum) and M2
+ 15. quality  -- the end-to-end quality run, after the parallel phase's
+                 tensors are freed: arm A of `vegs_torch.perf.quality`
+                 (the ray-traced street oracle at 128x256, 17 cameras,
+                 the mover stripped, 1,500 iterations of the Trainer with
+                 densify [100, 900] at tau 0.0002 and k_cap 2^17 free to
+                 adapt), with every launch counter set to 0 just before:
+                 the held-out PSNR and SSIM trend (every 300 iterations),
+                 ms per step (median), wall s, k_cap's path, launches (K1,
+                 K2, K3 at least once a step, K4 while its gate is on, M1
+                 and M2 none); the final PSNR within the band
+                 (`quality.PSNR_BAND_DB`, from the spread of three seeds)
+                 of the JAX package's 28.40 dB, the SSIM within 0.02 of
+                 0.903 (quality); K1, K2 and K3 (and K4 when its gate is
+                 on) against their plain versions on the inputs of one
+                 more step of the trained Trainer -- the densified field
+                 at its adapted capacity -- with phase 8's limits and
+                 controls (quality_kernels); then two controls, the same
+                 run read at iteration 900 against the band around JAX's
+                 it900 reading 27.04 dB (quality_control): SSIM's
+                 depthwise filter in bf16 (input and window cast) with
+                 the variance clamp kept, reported (an H100 read 25.99,
+                 1.05 dB off: the clamp repairs most of the fault), and
+                 the JAX package's SSIM before its round-5 fix -- the
+                 filter in bf16 and the variances unclamped -- which must
+                 miss (an H100 read 6.67 dB, as JAX's static arm read 6.5
+                 before its fix); the phase's seconds (quality_phase).
+                 With --quality-out PATH its readings also go into that
+                 quality report;
+ 16. perf     -- the measurement path (`vegs_torch.perf`), after the
+                 quality phase's tensors are freed: M1 (block sum) and M2
                  (transpose) against their plain versions at the probes'
                  full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
                  both layouts), with card, plain, library times and
@@ -226,10 +256,11 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
- 16. the kernels summary line (launches: the train phase's; launches_boxes:
+ 17. the kernels summary line (launches: the train phase's; launches_boxes:
      the boxes phase's; launches_cli: the cli phase's; launches_tools: the
      tools phase's `render_sets`; launches_guide: the guide phase's;
-     launches_parallel: the parallel phase's, both D), then
+     launches_parallel: the parallel phase's, both D; launches_quality:
+     the quality phase's arm A), then
      the card line, then the last line
      {"ok": true, "device": {...}}.
 
@@ -635,12 +666,13 @@ def staged_loss(field, tap, cam, gt, normal, sh_degree, bg, opt_cfg,
     return loss, st, out_p
 
 
-def step_kernel_inputs(trainer, cam, it, dev):
+def step_kernel_inputs(trainer, cam, it, dev, need_sat=True):
     """K2's, K3's and K4's inputs of the step `trainer` would take next on
     `cam`: the same loss, its gradient at the blend's padded output (K2's
     dout), K3's cotangents from K2's output on them (no Adam update), and
-    K4's inputs (`k4_args` of the `Staged`). Returns (K2 args, K3 args,
-    the `Staged`, the loss)."""
+    K4's inputs (`k4_args` of the `Staged`; with `need_sat`, the sat cull
+    must be on at the trainer's capacity). Returns (K2 args, K3 args, the
+    `Staged`, the loss)."""
     from vegs_torch.ops import blend_cuda
 
     field = trainer.state.field
@@ -652,7 +684,7 @@ def step_kernel_inputs(trainer, cam, it, dev):
         field, tap, cam.device_params(dev), gt, normal,
         trainer._active_sh_degree(it), trainer.bg, trainer.cfg.opt,
         trainer.raster_cfg)
-    if st.sat_counts is None:
+    if need_sat and st.sat_counts is None:
         raise AssertionError("the training step should run the sat cull")
     (dout,) = torch.autograd.grad(loss, out_p)
     k2_args = (st.payload_f32.detach(), st.payload_aux.detach(),
@@ -3428,6 +3460,160 @@ def parallel_phase(dev, card) -> dict:
     return res
 
 
+QUALITY_CONTROL_ITERS = 900  # the controls are read at JAX's it900
+
+
+def round5_ssim(img1, img2, window_size=11, sigma=1.5):
+    """SSIM as the JAX package computed it before its round-5 fix: the
+    package's depthwise filter (bf16 inside `ssim_control`) and the
+    variances E[x^2] - mu^2 left unclamped."""
+    from vegs_torch.losses import photometric as P
+
+    window = torch.from_numpy(P._gaussian_window(window_size, sigma)).to(
+        img1.device)
+
+    def filt(x):
+        return P._DepthwiseFilter.apply(x, window)
+
+    mu1, mu2 = filt(img1), filt(img2)
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    s1, s2 = filt(img1 * img1) - mu1_sq, filt(img2 * img2) - mu2_sq
+    s12 = filt(img1 * img2) - mu12
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    return torch.mean(((2 * mu12 + c1) * (2 * s12 + c2))
+                      / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2)))
+
+
+class ssim_control:
+    """The quality phase's controls, patched in while the context is open:
+    SSIM's depthwise filter with its input and window cast to bf16
+    (`vegs_torch.losses.photometric._filter_f32`), and, with clamp=False,
+    the Trainer's SSIM (`vegs_torch.train.ssim`: the step's loss and the
+    evaluation) without the variance clamp (`round5_ssim`) -- the JAX
+    package's SSIM before its round-5 fix (a bf16 convolution inside the
+    variance cancellation, which cost its static arm 22 dB at 128x256;
+    the fix made the convolution float32 and clamped the variances)."""
+
+    def __init__(self, clamp: bool):
+        self.clamp = clamp
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from vegs_torch import train
+        from vegs_torch.losses import photometric
+
+        def filter_bf16(img, window):
+            c = img.shape[0]
+            rhs = window.to(torch.bfloat16)[None, None].expand(
+                c, 1, *window.shape)
+            return F.conv2d(img.to(torch.bfloat16)[None], rhs,
+                            padding=window.shape[-1] // 2,
+                            groups=c)[0].float()
+
+        self.saved = (photometric._filter_f32, train.ssim)
+        photometric._filter_f32 = filter_bf16
+        if not self.clamp:
+            train.ssim = round5_ssim
+        return self
+
+    def __exit__(self, *exc):
+        from vegs_torch import train
+        from vegs_torch.losses import photometric
+
+        photometric._filter_f32, train.ssim = self.saved
+
+
+def quality_phase(dev, card) -> dict:
+    """Arm A of the end-to-end quality runs in full, its kernels on the
+    last step's inputs, and the control (see phase 15)."""
+    from vegs_torch.perf import quality as q
+
+    t0 = time.perf_counter()
+    band = q.PSNR_BAND_DB
+    info, _, _ = q.build_scene_info(np.random.default_rng(q.SCENE_SEED),
+                                    h=q.H, w=q.W, n_cams=q.N_CAMS)
+    counters = all_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    run = q.train_arm("A", info, iters=q.ITERS, device=dev,
+                      log=lambda m: None)
+    launches = {k: c.launches for k, c in counters.items()}
+    arm_a = run.record()
+    last = arm_a["trend"][-1]
+    emit("quality", run="arm A", card=card, trend=arm_a["trend"],
+         ms_per_step_median=arm_a["ms_per_step_median"],
+         wall_s=arm_a["wall_s"], kcap_path=arm_a["kcap_path"],
+         launches=launches, jax=q.JAX_FULL["A"], psnr_band=band,
+         ssim_band=q.SSIM_BAND)
+    short = [k for k in ("K1", "K2", "K3") if launches[k] < q.ITERS]
+    if short or not launches["K4"] or launches["M1"] or launches["M2"]:
+        raise AssertionError(f"quality run launches {launches}")
+    hold("arm A final PSNR against JAX's", abs(last["psnr"]
+                                              - q.JAX_FULL["A"][0]), band)
+    hold("arm A final SSIM against JAX's", abs(last["ssim"]
+                                              - q.JAX_FULL["A"][1]),
+         q.SSIM_BAND)
+
+    # K1-K3 (and K4 if its gate is on) against their plain versions on the
+    # last step's inputs: the densified field at the adapted capacity
+    tr, cam = run.tr, run.last_cam
+    k2_args, k3_args, st, _ = step_kernel_inputs(tr, cam, q.ITERS, dev,
+                                                 need_sat=False)
+    late = {"k_cap": tr.raster_cfg.k_cap, "k_pad": tr.raster_cfg.k_pad,
+            "active": int(tr.state.field.num_active()),
+            "sat_cull": st.sat_counts is not None,
+            "k2": compare_k2(k2_args), "k3": compare_k3_fused(k3_args, st)}
+    with torch.no_grad():
+        late["k1"] = compare_k1(st)
+        if st.sat_counts is not None:
+            late["k4"] = compare_k4(st)
+    k2, k3f = late["k2"], late["k3"]
+    k2.pop("pairs")
+    emit("quality_kernels", scene="128x256, arm A after 1,500 iterations",
+         card=card, k2_limit=K2_RTOL, k3_limit=K3_RTOL, **late)
+    for rows, scale in K2_SCALE.items():
+        hold(f"quality K2 {rows} by {scale}", k2[rows]["reading"][scale],
+             K2_RTOL, k2[rows]["control_reading"][scale])
+    if k2["flip_tiles"] > K2_MAX_FLIP_TILES * st.grid.num_tiles:
+        raise AssertionError(f"quality K2: {k2['flip_tiles']} stop-flip tiles")
+    for rows in ("f32_rows", "aux_rows"):
+        hold(f"quality K3 {rows}", k3f[rows]["reading"], K3_RTOL,
+             k3f[rows]["control_reading"])
+    del run, tr, k2_args, k3_args, st
+
+    # the controls, the same run read at it900: the bf16 filter alone (the
+    # variance clamp kept; reported), then the JAX round-5 SSIM (must miss)
+    controls = {}
+    for key, clamp, what in (
+            ("control_bf16", True, "SSIM filter in bf16, variances clamped"),
+            ("control", False, "the JAX round-5 SSIM: filter in bf16, "
+                               "variances unclamped")):
+        with ssim_control(clamp):
+            ctl = q.Run(key, q.arm_trainer("A", info, iters=q.ITERS,
+                                           device=dev), log=lambda m: None)
+            ctl.train(1, QUALITY_CONTROL_ITERS, q.EVAL_EVERY)
+        controls[key] = ctl.record()
+        del ctl
+        c = controls[key]["trend"][-1]
+        off = abs(c["psnr"] - q.JAX_A_IT900)
+        emit("quality_control", run=f"arm A, {what}", card=card,
+             must_miss=not clamp, trend=controls[key]["trend"],
+             jax_it900=q.JAX_A_IT900, psnr_band=band, off_by=off,
+             ms_per_step_median=controls[key]["ms_per_step_median"])
+        if not clamp and not off > band:
+            raise AssertionError(f"the control reads {c['psnr']} dB at it"
+                                 f"{c['it']}, within {band} dB of JAX's "
+                                 f"{q.JAX_A_IT900}: the band is too loose")
+    torch.cuda.empty_cache()
+    res = {"arm_a": arm_a, **controls, "launches": launches, "late": late,
+           "phase_s": time.perf_counter() - t0,
+           "setting": {"device": torch.cuda.get_device_name(0), "card": card}}
+    emit("quality_phase", seconds=res["phase_s"], card=card)
+    return res
+
+
 def kernel_times(kernel, plain, library) -> dict:
     """The card's own ms per call (torch.profiler: the summed durations of
     the device operations each call launches, without host gaps) of a
@@ -3516,7 +3702,7 @@ def m1_check(data, card) -> dict:
 
 
 def perf_phase(dev, card) -> dict:
-    """The measurement path (see phase 14). Returns the M1 and M2 check
+    """The measurement path (see phase 16). Returns the M1 and M2 check
     lines and the launches of every kernel in the path."""
     from vegs_torch.perf import micro3, refscale, roofline
 
@@ -3543,7 +3729,16 @@ def perf_phase(dev, card) -> dict:
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of vegs_torch on "
+                                 "one CUDA card (see the module docstring).")
+    ap.add_argument("--quality-out", default=None, metavar="PATH",
+                    help="also write the quality phase's readings into "
+                         "this quality report (vegs_torch.perf.quality's "
+                         "QUALITY_TORCH.md format)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -3888,10 +4083,20 @@ def main() -> int:
     par = parallel_phase(dev, card)
     torch.cuda.empty_cache()
 
-    # -- 15. the measurement path, on a card freed of the earlier phases ----
+    # -- 15. the end-to-end quality run: arm A trained 1,500 iterations -----
+    quality = quality_phase(dev, card)
+    if args.quality_out:
+        from vegs_torch.perf.quality import write_report
+
+        write_report(args.quality_out, "smoke", {
+            k: quality[k] for k in ("arm_a", "control", "control_bf16",
+                                    "phase_s", "setting")})
+    torch.cuda.empty_cache()
+
+    # -- 16. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
 
-    # -- 16. summary ---------------------------------------------------------
+    # -- 17. summary ---------------------------------------------------------
     launches = {**train["launches"]}
     m1, m2 = perf["M1"], perf["M2"]
     # launches: the static train phase's 8 steps; launches_boxes: the
@@ -3900,7 +4105,8 @@ def main() -> int:
     # `render_sets` (4 trajectories x TOOLS_VIDEO_FRAMES frames);
     # launches_guide: the guide phase's 12 guided steps (two renders each);
     # launches_parallel: the parallel phase's DP and TP steps and sharded
-    # renders, D = 1 and both D = 2 ranks
+    # renders, D = 1 and both D = 2 ranks; launches_quality: the quality
+    # phase's arm A (1,500 steps and its evaluations)
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
@@ -3911,7 +4117,8 @@ def main() -> int:
          "launches_cli": cli["launches"]["K1"],
          "launches_tools": tools["launches"]["K1"],
          "launches_guide": guide["launches"]["K1"],
-         "launches_parallel": par["launches"]["K1"], "matches_plain": True,
+         "launches_parallel": par["launches"]["K1"],
+         "launches_quality": quality["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -3926,7 +4133,8 @@ def main() -> int:
          "launches_cli": cli["launches"]["K2"],
          "launches_tools": tools["launches"]["K2"],
          "launches_guide": guide["launches"]["K2"],
-         "launches_parallel": par["launches"]["K2"], "matches_plain": True,
+         "launches_parallel": par["launches"]["K2"],
+         "launches_quality": quality["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -3943,7 +4151,8 @@ def main() -> int:
          "launches_cli": cli["launches"]["K3"],
          "launches_tools": tools["launches"]["K3"],
          "launches_guide": guide["launches"]["K3"],
-         "launches_parallel": par["launches"]["K3"], "matches_plain": True,
+         "launches_parallel": par["launches"]["K3"],
+         "launches_quality": quality["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
@@ -3962,7 +4171,8 @@ def main() -> int:
          "launches_cli": cli["launches"]["K4"],
          "launches_tools": tools["launches"]["K4"],
          "launches_guide": guide["launches"]["K4"],
-         "launches_parallel": par["launches"]["K4"], "matches_plain": True,
+         "launches_parallel": par["launches"]["K4"],
+         "launches_quality": quality["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
@@ -3975,6 +4185,7 @@ def main() -> int:
          "launches": perf["launches"]["M1"], "launched_by": perf_only,
          "launches_guide": guide["launches"]["M1"],
          "launches_tools": tools["launches"]["M1"],
+         "launches_quality": quality["launches"]["M1"],
          "matches_plain": True, "max_abs_err": m1["max_abs_err"],
          "case": f"{m1['dtype']} {m1['layout']}",
          "ms": m1["ms"], "plain_ms": m1["plain_ms"],
@@ -3986,6 +4197,7 @@ def main() -> int:
          "launches": perf["launches"]["M2"], "launched_by": perf_only,
          "launches_guide": guide["launches"]["M2"],
          "launches_tools": tools["launches"]["M2"],
+         "launches_quality": quality["launches"]["M2"],
          "matches_plain": True, "max_abs_err": m2["max_abs_err"],
          "case": m2["dtype"],
          "ms": m2["ms"], "plain_ms": m2["plain_ms"],

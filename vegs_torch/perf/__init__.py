@@ -8,7 +8,10 @@ scripts that reach a Pallas kernel):
   2,233,571 Gaussians (perf/r09_refscale.py);
 - `roofline`: each stage's bound on the card beside its measured time
   (perf/r10_roofline.py);
-- `timing`: CUDA-event timing and the card's name and power limit.
+- `timing`: CUDA-event timing and the card's name and power limit;
+- `quality`: the end-to-end quality runs on the ray-traced oracle
+  (perf/quality_full*.py, quality_r02.py, quality_box_r05.py), held
+  against the JAX package's recorded readings in QUALITY_TORCH.md.
 
 Each runs on the card, and fails without one, unless given device="cpu".
 """
