@@ -245,8 +245,37 @@ Phases, one JSON line each; any failure exits non-zero:
                  before its fix); the phase's seconds (quality_phase).
                  With --quality-out PATH its readings also go into that
                  quality report;
- 16. perf     -- the measurement path (`vegs_torch.perf`), after the
-                 quality phase's tensors are freed: M1 (block sum) and M2
+ 16. tp_quality -- the fully sharded trainer's quality runs
+                 (`vegs_torch.perf.quality_tp`), shortened, after the
+                 quality phase's tensors are freed: D = 4 ranks spawned
+                 as gloo-host ranks sharing the card, the ray-traced
+                 street oracle with its mover at 32x64 (9 cameras, 1,408
+                 seeded points in 1,536 rows, the box field's 96 in 128,
+                 every per-Gaussian tensor sharded, the box residuals
+                 replicated), launch counters counted over the TP steps
+                 alone in each rank (a spawned rank starts at 0). First
+                 r05b's adapter demo, shortened: k_cap 1024 (floor 512,
+                 decay window 25), a stale 32768 swapped in at it 60, 110
+                 iterations; the adapter must grow, take the stale cap,
+                 then decay, in that order, with no drop after its last
+                 grow, and every rank must rebuild at the same iterations
+                 (tp_quality_adapter). Then r05's seed-0 TP run to its
+                 first densify event (it 160: k_cap 2^15 with the live
+                 adapter, floor 512, window 30, which may only decay),
+                 the mask report there -- `densify_masks` on the state
+                 gathered in rank order against each rank's own -- with 0
+                 rows differing (tp_quality_masks); then K1-K3 against
+                 their plain versions on the inputs of one more step on
+                 ranks 0 and 1 (at 32x64 the grid's two tile rows; ranks
+                 2 and 3 own its padding), with phase 8's limits and
+                 controls; K2's control, the deep instances off by 1%,
+                 is held on the rank whose tiles hold more than 256
+                 instances (rank 0's, the sky row, hold at most 256)
+                 (tp_quality_kernels); each rank's TP steps launch K1-K3
+                 and no K4 (the sharded paths run no sat cull), M1 or M2
+                 (tp_quality). Readings about equivalence, not speed;
+ 17. perf     -- the measurement path (`vegs_torch.perf`), after the
+                 tp_quality phase's tensors are freed: M1 (block sum) and M2
                  (transpose) against their plain versions at the probes'
                  full size (K = 2^21, f32 [K, 8] and bf16 [K, 16]; M1 in
                  both layouts), with card, plain, library times and
@@ -256,11 +285,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
- 17. the kernels summary line (launches: the train phase's; launches_boxes:
+ 18. the kernels summary line (launches: the train phase's; launches_boxes:
      the boxes phase's; launches_cli: the cli phase's; launches_tools: the
      tools phase's `render_sets`; launches_guide: the guide phase's;
      launches_parallel: the parallel phase's, both D; launches_quality:
-     the quality phase's arm A), then
+     the quality phase's arm A; launches_tp_quality: the tp_quality
+     phase's TP steps, every rank), then
      the card line, then the last line
      {"ok": true, "device": {...}}.
 
@@ -3122,31 +3152,36 @@ def equal_to(ref: dict, got) -> dict:
             for k, x in zip(("rgb", "depth", "alpha"), got)}
 
 
-def par_kernel_checks(plan, cam, gt, nm, cfg, opt_cfg, comm, f):
-    """K1, K2 and K3 on the first tile-sharded step's inputs: both ranks
-    take the step's loss and its gradient at the blend's output and at the
-    payload expansion (the reverse exchange needs both); rank 0 holds K1
-    and K2 against their plain versions on its full-grid layout (only its
-    own tiles hold instances) and K3 on its `order_raw` stream, with the
-    limits and controls of phases 4 and 8. Returns rank 0's readings."""
+def par_kernel_checks(plan, cam, gt, nm, cfg, opt_cfg, comm, arrays,
+                      on_ranks=(0,)):
+    """K1, K2 and K3 on a tile-sharded step's inputs (`arrays`, this rank's
+    `FieldArrays` rows): every rank takes the step's loss and its gradient
+    at the blend's output and at the payload expansion (the reverse
+    exchange needs both); each rank of `on_ranks` holds K1 and K2 against
+    their plain versions on its full-grid layout (only its own tiles hold
+    instances) and K3 on its `order_raw` stream, with the limits and
+    controls of phases 4 and 8. K2's control (the deep instances off by
+    1%) changes nothing on a rank whose tiles hold at most 256 instances,
+    so it is held only where deep instances exist, and the result says
+    whether it was. Returns this rank's readings (None off `on_ranks`)."""
     from types import SimpleNamespace
 
     import torch.distributed as dist
     from vegs_torch.parallel.tile_sharded import tile_render_local
     from vegs_torch.parallel.tp_trainer import _image_loss, _whole_image
-    from vegs_torch.render import field_arrays
 
     rec = {}
+    h, w = cam.height, cam.width
     bg = torch.zeros(3, device=gt.device)
-    out_loc, _, _ = tile_render_local(plan, cam, cfg, 3, comm,
-                                      *field_arrays(f, 3), record=rec)
-    rgb, out = _whole_image(out_loc, comm, H, W, bg)
-    loss, _, nloss = _image_loss(rgb, out, gt, nm, opt_cfg, True, H, W)
+    out_loc, _, _ = tile_render_local(plan, cam, cfg, 3, comm, *arrays,
+                                      record=rec)
+    rgb, out = _whole_image(out_loc, comm, h, w, bg)
+    loss, _, nloss = _image_loss(rgb, out, gt, nm, opt_cfg, True, h, w)
     loss = (loss + opt_cfg.lambda_dnormal * nloss) / comm.size
     dout, d_pf, d_pa = torch.autograd.grad(
         loss, [rec["blend_out"], *rec["gather_out"]])
     res = None
-    if comm.index == 0:
+    if comm.index in on_ranks:
         pf, pa, ts, grid, hp, wp = rec["blend_args"]
         ns = SimpleNamespace(payload_f32=pf, payload_aux=pa, grid=grid,
                              pay_rows=rec["pay_rows"],
@@ -3155,19 +3190,21 @@ def par_kernel_checks(plan, cam, gt, nm, cfg, opt_cfg, comm, f):
         k1 = compare_k1(ns)
         k2 = compare_k2((pf, pa, ts, rec["blend_out"].detach(),
                          dout.contiguous(), grid))
+        control = k2["deep_instances"] > 0
         for rows, scale in K2_SCALE.items():
-            hold(f"K2 {rows} by {scale} (tile-sharded)",
+            hold(f"K2 {rows} by {scale} (tile-sharded, rank {comm.index})",
                  k2[rows]["reading"][scale], K2_RTOL,
-                 k2[rows]["control_reading"][scale])
+                 k2[rows]["control_reading"][scale] if control else None)
         if k2["flip_tiles"] > K2_MAX_FLIP_TILES * grid.num_tiles:
             raise AssertionError(f"K2: {k2['flip_tiles']} stop-flip tiles")
         k3 = compare_k3_fused((d_pf.contiguous(), d_pa.contiguous(),
                                rec["order_raw"], rec["ends"]), ns)
         for rows in ("f32_rows", "aux_rows"):
-            hold(f"K3 fused {rows} (order_raw)", k3[rows]["reading"], K3_RTOL,
-                 k3[rows]["control_reading"])
+            hold(f"K3 fused {rows} (order_raw, rank {comm.index})",
+                 k3[rows]["reading"], K3_RTOL, k3[rows]["control_reading"])
         k2.pop("pairs")
-        res = {"k1": k1, "k2": k2, "k3": k3,
+        res = {"rank": comm.index, "k1": k1, "k2": k2, "k3": k3,
+               "k2_control_held": control,
                "local_tiles": int((ts[1:] > ts[:-1]).sum()),
                "instances": int(ts[-1])}
     dist.barrier()
@@ -3254,7 +3291,8 @@ def _parallel_rank(rank: int, tmp: str, device_type: str) -> dict:
                             "tile_dropped": r["tile_dropped"]}
     del r, ref
     out["kernel_checks"] = par_kernel_checks(plan, cam0, gt0, nm0, cfg,
-                                             tcfg.opt, tcomm, state[0])
+                                             tcfg.opt, tcomm,
+                                             field_arrays(state[0], 3))
     torch.cuda.empty_cache()
     step = make_tp_train_step(tm, tcfg.opt, cfg, float(scene.cameras_extent),
                               cam0, use_normal_loss=True, k_exch=k_exch)
@@ -3428,6 +3466,8 @@ def parallel_phase(dev, card) -> dict:
             emit("parallel_kernels", card=card, transport=r["transport"],
                  scene="376x1408, 2,233,571 Gaussians, rank 0 of 2, first "
                        "tile-sharded step", **kc)
+            if not kc["k2_control_held"]:
+                raise AssertionError("K2's control held on no rank")
             res["kernel_checks"] = kc
         emit("parallel_d2", **r)
     for r in ranks:
@@ -3611,6 +3651,112 @@ def quality_phase(dev, card) -> dict:
            "phase_s": time.perf_counter() - t0,
            "setting": {"device": torch.cuda.get_device_name(0), "card": card}}
     emit("quality_phase", seconds=res["phase_s"], card=card)
+    return res
+
+
+TPQ_D = 4                  # ranks of the TP quality runs, on the one card
+TPQ_DEMO_ITERS = 110       # r05b's demo, shortened: the stale cap at it 60
+TPQ_SWAP = (60, 32768)
+TPQ_MASK_ITERS = 160       # r05's seed-0 TP run to its first densify event
+
+
+def tpq_after(mesh, scene, spec, last):
+    """In each rank after a TP quality run (`quality_tp.run_tp`'s `after`):
+    on the run that asks, K1-K3 against their plain versions on the inputs
+    the next step would take -- the static and box rows of this rank, the
+    box moved by its residual -- on ranks 0 and 1 (the ranks that own tile
+    rows at 32x64; ranks 2 and 3 own the grid's padding)."""
+    if not spec.get("checks"):
+        return None
+    from vegs_torch.boxmodel import adjust_box2world
+    from vegs_torch.parallel.tile_sharded import make_tile_plan
+    from vegs_torch.perf.quality_tp import opt_config
+    from vegs_torch.render import (_concat_arrays, field_arrays,
+                                   transform_field_arrays)
+
+    comm = mesh.comm()
+    b2w = adjust_box2world(last["b2w"], last["deltas"])[0].detach()
+    arrays = _concat_arrays([
+        field_arrays(last["field"], 3),
+        transform_field_arrays(field_arrays(last["bfield"], 3), b2w)])
+    cam, cfg = last["cam"], last["raster"]
+    return par_kernel_checks(make_tile_plan(comm.size, cam, cfg), cam,
+                             last["gt"], last["normal"], cfg, opt_config(),
+                             comm, arrays, on_ranks=(0, 1))
+
+
+def tp_quality_phase(dev, card) -> dict:
+    """The fully sharded trainer's quality runs, shortened (see phase
+    16)."""
+    from vegs_torch.config import OptimizationParams
+    from vegs_torch.perf import quality_tp as qt
+
+    t0 = time.perf_counter()
+    demo_spec = {"kind": "full", "seed": 0, "iters": TPQ_DEMO_ITERS,
+                 "every": None, "densify": None, "k_cap": qt.K_CAP,
+                 "adapter": qt.R05B_ADAPTER, "swap": TPQ_SWAP,
+                 "grad_threshold": OptimizationParams().densify_grad_threshold}
+    mask_spec = {"kind": "full", "seed": 0, "iters": TPQ_MASK_ITERS,
+                 "every": None, "densify": qt.R05_DENSIFY, "k_cap": qt.K_CAP,
+                 "adapter": qt.R05_ADAPTER, "masks": True, "checks": True}
+    demo, r05 = qt.run_tp([demo_spec, mask_spec], ndev=TPQ_D, device=dev,
+                          after=tpq_after)
+    run_s = time.perf_counter() - t0
+    launches = {k: sum(r["step_launches"][k] for rec in (demo, r05)
+                       for r in rec["ranks"])
+                for k in ("K1", "K2", "K3", "K4", "M1", "M2")}
+    ordered, clean = qt.adapter_order_ok(demo["adapter_events"],
+                                         demo["dropped"])
+    emit("tp_quality_adapter", card=card, ranks=TPQ_D, transport="gloo-host",
+         run=f"r05b shortened: k_cap 1024, floor 512, window 25, the stale "
+             f"{TPQ_SWAP[1]} at it {TPQ_SWAP[0]}, {TPQ_DEMO_ITERS} iterations",
+         events=demo["adapter_events"], jax_r05b=qt.JAX_R05B,
+         rebuilds_by_rank=[r["rebuilds"] for r in demo["ranks"]],
+         dropped_steps=[i + 1 for i, x in enumerate(demo["dropped"]) if x],
+         ordered=ordered, no_drop_after_last_grow=clean,
+         final_psnr=demo["final_psnr"],
+         ms_per_step_median=[r["ms_per_step_median"] for r in demo["ranks"]],
+         step_launches=[r["step_launches"] for r in demo["ranks"]],
+         wall_s=demo["wall_s"])
+    emit("tp_quality_masks", card=card, ranks=TPQ_D,
+         run=f"r05 seed 0 to its first densify event (it {TPQ_MASK_ITERS})",
+         masks=r05["masks"], jax_masks=qt.JAX_R05_MASKS,
+         events=r05["adapter_events"], jax_events=qt.JAX_R05_ADAPTER,
+         rebuilds_by_rank=[r["rebuilds"] for r in r05["ranks"]],
+         densify=r05["densify"], final_psnr=r05["final_psnr"],
+         box_err=r05["box_err"], box_err_raw=r05["box_err_raw"],
+         ms_per_step_median=[r["ms_per_step_median"] for r in r05["ranks"]],
+         step_launches=[r["step_launches"] for r in r05["ranks"]],
+         wall_s=r05["wall_s"])
+    checks = [r["after"] for r in r05["ranks"] if r.get("after")]
+    for c in checks:
+        emit("tp_quality_kernels", card=card,
+             scene=f"32x64, r05 seed 0 after {TPQ_MASK_ITERS} iterations, "
+                   f"rank {c['rank']} of {TPQ_D}", k2_limit=K2_RTOL,
+             k3_limit=K3_RTOL, **c)
+    if not (ordered and clean):
+        raise AssertionError(f"adapter demo: events {demo['adapter_events']}"
+                             f", dropped at {demo['dropped']}")
+    for rec, what in ((demo, "demo"), (r05, "r05")):
+        if not qt.ranks_agree(rec):
+            raise AssertionError(f"{what}: ranks rebuilt at different "
+                                 f"iterations: {rec['ranks']}")
+        if not qt.step_launches_ok(rec):
+            raise AssertionError(f"{what}: TP step launches "
+                                 f"{[r['step_launches'] for r in rec['ranks']]}")
+    ev = r05["adapter_events"]
+    if not ev or any(k != "decay" for _, k, _ in ev):
+        raise AssertionError(f"r05 seed 0: adapter events {ev}")
+    if [m["it"] for m in r05["masks"]] != [TPQ_MASK_ITERS] or any(
+            sum(m["diffs"]) for m in r05["masks"]):
+        raise AssertionError(f"mask report {r05['masks']}")
+    if len(checks) != 2 or not any(c["k2_control_held"] for c in checks):
+        raise AssertionError(f"K2's control held on no rank: {checks}")
+    res = {"demo": demo, "r05": r05, "kernel_checks": checks,
+           "launches": launches, "run_s": run_s,
+           "phase_s": time.perf_counter() - t0}
+    emit("tp_quality", card=card, launches=launches, run_s=run_s,
+         seconds=res["phase_s"])
     return res
 
 
@@ -4093,10 +4239,14 @@ def main(argv=None) -> int:
                                     "phase_s", "setting")})
     torch.cuda.empty_cache()
 
-    # -- 16. the measurement path, on a card freed of the earlier phases ----
+    # -- 16. the fully sharded trainer's quality runs, D = 4 on the card ----
+    tpq = tp_quality_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 17. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
 
-    # -- 17. summary ---------------------------------------------------------
+    # -- 18. summary ---------------------------------------------------------
     launches = {**train["launches"]}
     m1, m2 = perf["M1"], perf["M2"]
     # launches: the static train phase's 8 steps; launches_boxes: the
@@ -4106,7 +4256,8 @@ def main(argv=None) -> int:
     # launches_guide: the guide phase's 12 guided steps (two renders each);
     # launches_parallel: the parallel phase's DP and TP steps and sharded
     # renders, D = 1 and both D = 2 ranks; launches_quality: the quality
-    # phase's arm A (1,500 steps and its evaluations)
+    # phase's arm A (1,500 steps and its evaluations); launches_tp_quality:
+    # the tp_quality phase's TP steps, every rank of both runs
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
@@ -4118,7 +4269,8 @@ def main(argv=None) -> int:
          "launches_tools": tools["launches"]["K1"],
          "launches_guide": guide["launches"]["K1"],
          "launches_parallel": par["launches"]["K1"],
-         "launches_quality": quality["launches"]["K1"], "matches_plain": True,
+         "launches_quality": quality["launches"]["K1"],
+         "launches_tp_quality": tpq["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -4134,7 +4286,8 @@ def main(argv=None) -> int:
          "launches_tools": tools["launches"]["K2"],
          "launches_guide": guide["launches"]["K2"],
          "launches_parallel": par["launches"]["K2"],
-         "launches_quality": quality["launches"]["K2"], "matches_plain": True,
+         "launches_quality": quality["launches"]["K2"],
+         "launches_tp_quality": tpq["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -4152,7 +4305,8 @@ def main(argv=None) -> int:
          "launches_tools": tools["launches"]["K3"],
          "launches_guide": guide["launches"]["K3"],
          "launches_parallel": par["launches"]["K3"],
-         "launches_quality": quality["launches"]["K3"], "matches_plain": True,
+         "launches_quality": quality["launches"]["K3"],
+         "launches_tp_quality": tpq["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
@@ -4172,7 +4326,8 @@ def main(argv=None) -> int:
          "launches_tools": tools["launches"]["K4"],
          "launches_guide": guide["launches"]["K4"],
          "launches_parallel": par["launches"]["K4"],
-         "launches_quality": quality["launches"]["K4"], "matches_plain": True,
+         "launches_quality": quality["launches"]["K4"],
+         "launches_tp_quality": tpq["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
@@ -4186,6 +4341,7 @@ def main(argv=None) -> int:
          "launches_guide": guide["launches"]["M1"],
          "launches_tools": tools["launches"]["M1"],
          "launches_quality": quality["launches"]["M1"],
+         "launches_tp_quality": tpq["launches"]["M1"],
          "matches_plain": True, "max_abs_err": m1["max_abs_err"],
          "case": f"{m1['dtype']} {m1['layout']}",
          "ms": m1["ms"], "plain_ms": m1["plain_ms"],
@@ -4198,6 +4354,7 @@ def main(argv=None) -> int:
          "launches_guide": guide["launches"]["M2"],
          "launches_tools": tools["launches"]["M2"],
          "launches_quality": quality["launches"]["M2"],
+         "launches_tp_quality": tpq["launches"]["M2"],
          "matches_plain": True, "max_abs_err": m2["max_abs_err"],
          "case": m2["dtype"],
          "ms": m2["ms"], "plain_ms": m2["plain_ms"],

@@ -5,14 +5,20 @@ tests/test_torch_loaders.py (4 frames of 48x64 stereo, one vehicle box;
 
 The port's `main` starts 2 gloo ranks (`parallel.launch.spawn`); rank 0
 reads the scene first and alone writes the PLYs, cfg_args.json and
-metrics.jsonl. The JAX CLI runs its shard_map step on 2 of the virtual CPU
-devices (tests/conftest.py). Tolerance: every column of the final static
-and instance PLYs within 1e-4, as the one-device CLI test
-(tests/test_torch_cli.py: float32 sums in another order through the normal
-init and six Adam steps).
+metrics.jsonl. The multi-host way in (`--coordinator_address tcp://...
+--num_processes 2 --process_id i`, `parallel.mesh.initialize_distributed`)
+runs as two CPU processes started here, each with the intra-op threads a
+spawned rank gets; their PLYs are held against `--data_parallel 2`'s to
+the bit (the same ranks' code in the same order). The JAX CLI runs its
+shard_map step on 2 of the virtual CPU devices (tests/conftest.py).
+Tolerance against JAX: every column of the final static and instance PLYs
+within 1e-4, as the one-device CLI test (tests/test_torch_cli.py: float32
+sums in another order through the normal init and six Adam steps).
 """
 
 import os
+import socket
+import subprocess
 import sys
 from pathlib import Path
 
@@ -76,3 +82,46 @@ def test_main_data_parallel_writes_from_rank_zero_alone(runs):
     assert (port / "metrics.jsonl").exists()
     assert sorted(p.name for p in (port / "point_cloud").iterdir()) == \
         [f"iteration_{ITERS}"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_main_multi_host_matches_data_parallel(runs):
+    """Two processes, one rank each, meeting over TCP on localhost."""
+    _, base = runs
+    addr = f"tcp://127.0.0.1:{_free_port()}"
+    threads = max(1, (os.cpu_count() or 1) // 2)
+    code = ("import sys, torch; torch.set_num_threads(int(sys.argv[1])); "
+            "from vegs_torch.train import main; "
+            "main(sys.argv[2:], device='cpu')")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    env.pop("VEGS_SD_CHECKPOINT", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(threads),
+         *_argv(base / "root", base / "multihost", "--coordinator_address",
+                addr, "--num_processes", "2", "--process_id", str(i))],
+        cwd=base, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {i}:\n{o[-3000:]}"
+    rel = [Path("point_cloud") / f"iteration_{ITERS}" / "point_cloud.ply",
+           Path(f"instance_{CAR}") / "point_cloud" / f"iteration_{ITERS}"
+           / "point_cloud.ply"]
+    for r in rel:
+        got, want = _ply(base / "multihost" / r), _ply(base / "port" / r)
+        assert sorted(got) == sorted(want)
+        for col in want:
+            np.testing.assert_array_equal(got[col], want[col],
+                                          err_msg=f"{r} {col}")

@@ -552,3 +552,15 @@ def tp_full_extras(rank: int, path: str) -> dict:
                            boxes1[0].deltas.as_dict().items()},
             "tp_metrics": {k: float(v) for k, v in m.items()},
             "one_metrics": {k: float(v) for k, v in m1.items()}}
+
+
+# -- the TP quality harness ------------------------------------------------------
+def tp_state_blocks(mesh, scene, spec, last) -> dict:
+    """`quality_tp.run_tp`'s `after` hook: this rank's row blocks of the
+    field, its Adam first moments and the box field, and the replicated
+    residual of every frame, as numpy."""
+    return {"field": field_numpy(last["field"]),
+            "mu": {k: npy(v) for k, v in last["opt"]["mu"].items()},
+            "box_field": field_numpy(last["bfield"]),
+            "deltas": {f: {k: npy(v[0]) for k, v in d.as_dict().items()}
+                       for f, (d, _) in last["deltas_by_frame"].items()}}

@@ -104,13 +104,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Multi-host bootstrap: one process per rank, `num_processes` ranks in
     all, this one `process_id`, meeting at `tcp://coordinator_address`
     (host:port; nothing tells a program of a cluster, so all three are
-    given). Returns the world size; a no-op when a group exists."""
+    given; `tcp://host:port` is taken as well). Returns the world size; a
+    no-op when a group exists."""
     if dist.is_initialized():
         return dist.get_world_size()
     if coordinator_address is None or num_processes is None \
             or process_id is None:
         raise ValueError("multi-host runs need --coordinator_address, "
                          "--num_processes and --process_id")
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+    addr = coordinator_address.removeprefix("tcp://")
+    dist.init_process_group(backend, init_method=f"tcp://{addr}",
                             world_size=num_processes, rank=process_id)
     return dist.get_world_size()

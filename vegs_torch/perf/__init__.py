@@ -11,7 +11,10 @@ scripts that reach a Pallas kernel):
 - `timing`: CUDA-event timing and the card's name and power limit;
 - `quality`: the end-to-end quality runs on the ray-traced oracle
   (perf/quality_full*.py, quality_r02.py, quality_box_r05.py), held
-  against the JAX package's recorded readings in QUALITY_TORCH.md.
+  against the JAX package's recorded readings in QUALITY_TORCH.md;
+- `quality_tp`: the fully sharded trainer's quality runs against the
+  single-device step at D spawned ranks (perf/quality_tp*.py), held
+  against QUALITY_TP_r02-r05 in QUALITY_TORCH_TP.md.
 
 Each runs on the card, and fails without one, unless given device="cpu".
 """
