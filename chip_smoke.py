@@ -12,7 +12,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  and M2 from vegs_torch/csrc, in parallel; ptxas registers
                  and shared memory per kernel, and the registers, shared
                  memory, resident blocks per SM and spills of K1, K2, K4
-                 (16x16 tiles) and K3 as the CUDA runtime reports them;
+                 (16x16 tiles) and K3 as the CUDA runtime reports them,
+                 and of K2's 16- and 32-warp builds (512- and 1024-pixel
+                 tiles);
   3. k4_check -- K4 (the main path's entry, reading the payload rows
                  through the sorted Gaussian index) against its plain
                  PyTorch version on a saturating reduced scene (128x512,
@@ -70,6 +72,25 @@ Phases, one JSON line each; any failure exits non-zero:
                  and of their residuals) through the kernels on the card
                  against the plain versions on the CPU, on a reduced scene
                  (128x512, 50k Gaussians and 2 boxes, bf16 aux);
+  9b. tiles   -- wide tiles through the main path at 376x1408, K2's 16-
+                 and 32-warp builds: one static Trainer step (iterations
+                 3001-3003) on the train phase's field at each of 16x32,
+                 32x16 and 32x32, capacities probed at that shape, each
+                 step launching K1-K3 once and K4 once where its gate is
+                 on (tiles_step); then, on bench.py's 500,000-Gaussian
+                 scene (`vegs_torch.perf.refscale.build_scene`), k_cap
+                 sized as perf/r05_tiles.py does, `rasterize`'s stages,
+                 K1 and the loss mean(rgb^2) + 0.01 mean(depth^2), its
+                 backward through K2 and K3, with the launch counters set
+                 to 0 just before and read just after; K1 against its plain
+                 version on every tile, K2's f32 and aux rows against the
+                 plain K2 on the 32 deepest tiles and 32 seeded others
+                 (the plain K2 walks each tile in Python) with phase 8's
+                 limits and control, two K2 runs equal to the bit, K2's ms
+                 and bound, K3 on K2's output with phase 8's limits and
+                 control, K4's counts where its gate is on (tiles_check);
+                 then `vegs_torch.perf.tiles`' sweep of 16x16, 16x32,
+                 32x32 and 32x16 (tiles_sweep);
  10. boxes    -- the dynamic-scene training path at full width, after the
                  earlier phases' tensors are freed: the same seeded
                  2,233,571-Gaussian static field (a PLY) and 3 street
@@ -285,12 +306,28 @@ Phases, one JSON line each; any failure exits non-zero:
                  tiles, sat cull on (refscale), and each stage's bound and
                  share of its time (roofline); every kernel must have
                  launched in this path;
+ 17b. probes -- the main path's probes at bench shape, with every launch
+                 counter set to 0 just before: the stage split at 500,000
+                 Gaussians, 16x16 tiles, k_cap 1,126,912, each stage's
+                 bound (stages), and stages_r02's bisect forward and
+                 forward+backward (`vegs_torch.perf.stages`); r06's, r08's
+                 and r11's binning and row-gather A/Bs, r06's delta map
+                 held equal to the bit to the current map and r11's
+                 scatter-and-cumsum to the gather it would replace
+                 (binning_probes); the sat-cull potential at 2,233,571
+                 Gaussians beside K4's and K1's prune on the same frame
+                 (satcull_analysis); r12's debug trail at 64x128 and
+                 128x256, cut to DEBUG_ITERS iterations each, and r12b's
+                 gradient statistics at both sizes (quality_debug); each
+                 line with the card; K1-K3 launched (probes);
  18. the kernels summary line (launches: the train phase's; launches_boxes:
      the boxes phase's; launches_cli: the cli phase's; launches_tools: the
      tools phase's `render_sets`; launches_guide: the guide phase's;
      launches_parallel: the parallel phase's, both D; launches_quality:
      the quality phase's arm A; launches_tp_quality: the tp_quality
-     phase's TP steps, every rank), then
+     phase's TP steps, every rank; launches_tiles: the tiles phase's;
+     launches_probes: the probes phase's; K2's row also has its readings,
+     ms and bound at each wide tile shape under "tiles"), then
      the card line, then the last line
      {"ok": true, "device": {...}}.
 
@@ -1319,12 +1356,11 @@ def grad_check(dev, n=50_000, seed=SEED):
 
 
 def main_counters() -> dict:
-    """The launch counters of the main paths' kernels: K1 and K2 (blend),
-    K3 (the gather's backward), K4 (the sat count on the payload rows)."""
-    from vegs_torch.ops import blend_cuda, satcull, segreduce
+    """The launch counters of the main paths' kernels, K1-K4
+    (`vegs_torch.perf.main_counters`)."""
+    from vegs_torch import perf
 
-    return {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
-            "K3": segreduce.gather_expand_bwd, "K4": satcull.satcount_gathered}
+    return perf.main_counters()
 
 
 def train_phase(scene, dev, card) -> dict:
@@ -1430,18 +1466,19 @@ def train_phase(scene, dev, card) -> dict:
 
 
 def sized_config(field, cams_augs, device, boxes_of=None,
-                 probe_cap=PROBE_CAP):
+                 probe_cap=PROBE_CAP, tile=(16, 16)):
     """Probe every view (a camera, or its CameraParams) at a generous
     capacity and size k_cap/k_pad by the largest need + 5% (as bench.py
-    does), with the sat cull on. With
+    does), with the sat cull on, at `tile` (tile_h, tile_w). With
     `boxes_of` (camera -> its frame's `BoxInstance`s) the boxes are
     rendered with the field, as `render_all` does."""
     from vegs_torch.ops.rasterize import RasterizeConfig
 
     from vegs_torch.ops.projection import CameraParams
 
+    th, tw = tile
     probe = RasterizeConfig(k_cap=probe_cap, k_pad=probe_cap, sat_cull=True,
-                            forward_only=True)
+                            forward_only=True, tile_h=th, tile_w=tw)
     need_raw = need_pad = 0
     for cam in cams_augs:
         boxes = boxes_of(cam) if boxes_of else ()
@@ -1454,7 +1491,8 @@ def sized_config(field, cams_augs, device, boxes_of=None,
         need_raw = max(need_raw, total)
         need_pad = max(need_pad, int(st.binned.tile_starts[-1]))
     return RasterizeConfig(k_cap=r512(need_raw * 1.05),
-                           k_pad=r512(need_pad * 1.05)), need_raw, need_pad
+                           k_pad=r512(need_pad * 1.05), tile_h=th,
+                           tile_w=tw), need_raw, need_pad
 
 
 def write_field_ply(path: Path, n: int, seed: int) -> None:
@@ -2222,10 +2260,11 @@ METRICS_TOL = 1e-5                 # SSIM / PSNR, card against CPU
 
 
 def all_counters() -> dict:
-    from vegs_torch.perf import micro3
+    """K1-K4's and M1's and M2's launch counters
+    (`vegs_torch.perf.all_counters`)."""
+    from vegs_torch import perf
 
-    return {**main_counters(), "M1": micro3.psum_consume,
-            "M2": micro3.transpose}
+    return perf.all_counters()
 
 
 def dpt_crop_check(est, crop_rgb) -> dict:
@@ -3760,6 +3799,296 @@ def tp_quality_phase(dev, card) -> dict:
     return res
 
 
+TILE_SHAPES = ((16, 32), (32, 16), (32, 32))  # K2's 16- and 32-warp builds
+TILES_N = 500_000    # bench.py's `value` scale (vegs_torch.perf.tiles)
+TILES_DEEP, TILES_OTHERS = 32, 32  # K2's plain walk: deepest and seeded tiles
+
+
+def tile_subset(tile_starts, grid, seed=SEED) -> list:
+    """The tiles K2 is held on at a wide shape: the TILES_DEEP deepest and
+    TILES_OTHERS others with instances drawn from `seed` (the plain K2
+    walks every tile in Python, ~13 s a frame at full width)."""
+    counts = (tile_starts[1:] - tile_starts[:-1]).cpu().numpy()
+    deep = np.argsort(-counts, kind="stable")[:TILES_DEEP]
+    rest = np.setdiff1d(np.flatnonzero(counts > 0), deep)
+    others = np.random.default_rng(seed).choice(
+        rest, size=min(TILES_OTHERS, len(rest)), replace=False)
+    return sorted(int(t) for t in np.concatenate([deep, others]))
+
+
+def tile_kernel_checks(st, out_p, dout, tiles_held) -> dict:
+    """K1, K2, K3 and K4 (where its gate is on) of one wide-tile fwd+bwd
+    against their plain versions, with phase 4's and phase 8's limits and
+    controls: K1 on every tile (its `pairs` give K2's bound); K2 on the
+    tiles `tiles_held` (`tile_subset`), f32 and aux rows, the control the
+    output 1% off after each tile's first 256 instances; two K2 runs equal
+    to the bit; K3 (the gather's whole backward) on K2's output; K4's
+    counts. Returns the readings, K2's ms and bound."""
+    from vegs_torch.ops import blend_cuda, segreduce
+    from vegs_torch.perf import roofline
+    from vegs_torch.perf.timing import cuda_ms
+
+    g = st.grid
+    hp, wp = g.padded_height, g.padded_width
+    pf, pa = st.payload_f32.detach(), st.payload_aux.detach()
+    ts = st.binned.tile_starts
+    k = pf.shape[1]
+    k2_args = (pf, pa, ts, out_p.detach(), dout.contiguous(), g)
+    # K1 on every tile
+    out, stop = blend_cuda.blend(pf, pa, ts, g, hp, wp, return_stop=True)
+    pairs = {}
+    ref, stop_ref = blend_cuda.blend_ref_tiles(pf, pa, ts, g, hp, wp,
+                                               return_stop=True, pairs=pairs)
+    flips_px = stop != stop_ref
+    d = (out - ref).abs()
+    bad = int(((d > K1_ATOL + K1_RTOL * ref.abs()).any(dim=0)
+               & ~flips_px).sum())
+    k1 = {"stop_flips": int(flips_px.sum()), "pixels": hp * wp,
+          "max_abs_err": float(d.masked_fill(flips_px[None], 0).max()),
+          "bad_pixels": bad}
+    if bad or k1["stop_flips"] > MAX_FLIP_SHARE * hp * wp:
+        raise AssertionError(f"K1 at {g.tile_h}x{g.tile_w}: {k1}")
+    # K2 on the held tiles
+    kpf, kpa = blend_cuda.blend_bwd(*k2_args)
+    again = blend_cuda.blend_bwd(*k2_args)
+    t0 = time.perf_counter()
+    rpf, rpa = blend_cuda.blend_bwd_ref_tiles(*k2_args, tiles=tiles_held)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for x in (kpf, kpa, rpf, rpa):
+        if not torch.isfinite(x).all():
+            raise AssertionError("K2 or its plain version is not finite")
+    flips = flips_px.reshape(g.nty, g.tile_h, g.ntx, g.tile_w).any(
+        dim=3).any(dim=1).reshape(-1)
+    held = torch.zeros(g.num_tiles, dtype=torch.bool, device=ts.device)
+    held[tiles_held] = True
+    tile, batch = slot_tiles(ts, k, g)
+    keep = held[tile] & ~flips[tile] & (torch.arange(k, device=ts.device)
+                                        < ts[-1])
+    ctl = deep_control(ts, k, g)
+    bf16_ulp = BF16_ULP if pa.dtype == torch.bfloat16 else 0.0
+    k2 = {"tiles_held": len(tiles_held),
+          "flip_tiles_held": int(flips[tiles_held].sum()),
+          "instances_held": int(keep.sum()),
+          "deep_instances_held": int((keep & (batch > 0)).sum()),
+          "bit_identical_rerun": bool(
+              torch.equal(bits(kpf), bits(again[0]))
+              and torch.equal(bits(kpa), bits(again[1]))),
+          "plain_ms_held_tiles": plain_s * 1e3}
+    for rows, kk, r, ulp in (("f32_rows", kpf, rpf, 0.0),
+                             ("aux_rows", kpa, rpa.float(), bf16_ulp)):
+        k_ctl = (kk.float() * ctl).to(kk.dtype).float()
+        k2[rows] = {
+            "reading": k2_readings(kk.float(), r, ts, g, keep, ulp),
+            "control_reading": k2_readings(k_ctl, r, ts, g, keep, ulp)}
+    k2["max_abs_err"] = float(max(
+        (kpf - rpf)[:, keep].abs().max(),
+        (kpa.float() - rpa.float())[:, keep].abs().max()))
+    shape = f"{g.tile_h}x{g.tile_w}"
+    for rows, scale in K2_SCALE.items():
+        hold(f"K2 {rows} by {scale} at {shape}", k2[rows]["reading"][scale],
+             K2_RTOL, k2[rows]["control_reading"][scale])
+    if k2["flip_tiles_held"] > K2_MAX_FLIP_TILES * len(tiles_held) + 1:
+        raise AssertionError(f"K2 at {shape}: {k2['flip_tiles_held']} "
+                             "stop-flip tiles among the held")
+    if not k2["bit_identical_rerun"]:
+        raise AssertionError(f"K2 at {shape}: two runs differ")
+    k2["ms"] = cuda_ms(lambda: blend_cuda.blend_bwd(*k2_args))
+    k2_bytes, k2_ops = roofline.k2_work(pairs, pa.element_size(), k,
+                                        g.num_tiles, hp, wp)
+    k2["bound_ms"], k2["bound_by"] = roofline.bound_ms(
+        roofline.Work(k2_bytes, k2_ops))
+    k2["pairs"] = pairs
+    # K3 on K2's output, as the main path runs it
+    ends = torch.cat([st.binned.gauss_ends, st.binned.gauss_ends[-1:]])
+    k3 = compare_k3_fused((kpf, kpa, st.binned.order, ends), st)
+    for rows in ("f32_rows", "aux_rows"):
+        hold(f"K3 {rows} at {shape}", k3[rows]["reading"], K3_RTOL,
+             k3[rows]["control_reading"])
+    k3 = {r: k3[r] for r in ("segments", "rows", "f32_rows", "aux_rows",
+                             "max_abs_err", "plain_ms")}
+    # K4 where its gate is on
+    k4 = compare_k4(st) if st.sat_counts is not None else None
+    return {"k1": k1, "k2": k2, "k3": k3, "k4": k4}
+
+
+def tiles_phase(dev, card, scene) -> dict:
+    """Phase 9b: wide tiles through the main path at 376x1408 (see the
+    module docstring). `scene` is the train phase's: one static Trainer
+    step at each wide shape on its field. Returns per shape the Trainer
+    step's and the fwd+bwd's launches and the kernel readings, and the
+    sweep's lines."""
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.ops.blend_cuda import BlendFn
+    from vegs_torch.ops.binning import TileGrid
+    from vegs_torch.ops.rasterize import (SAT_MIN_SLOTS_PER_TILE,
+                                          RasterizeConfig, raster_out, stage)
+    from vegs_torch.perf import tiles as tiles_mod
+    from vegs_torch.perf.refscale import build_scene
+    from vegs_torch.train import Trainer
+
+    def grid_of(th, tw):
+        return TileGrid.for_image(H, W, th, tw)
+
+    t0 = time.perf_counter()
+    counters = all_counters()
+    cams = scene.getTrainCameras()
+    res = {"steps": {}, "shapes": {}}
+    # one static Trainer step a shape on the train phase's field
+    for i, (th, tw) in enumerate(TILE_SHAPES):
+        with torch.inference_mode():
+            cfg, need_raw, need_pad = sized_config(scene.gaussians, cams, dev,
+                                                   tile=(th, tw))
+        trainer = Trainer(VegsConfig(), scene, raster_cfg=cfg, device=dev)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t1 = time.perf_counter()
+        m = trainer.train_iteration(TRAIN_FIRST_IT + i, camera=cams[i])
+        torch.cuda.synchronize()
+        step = {"ms": (time.perf_counter() - t1) * 1e3,
+                "launches": {k: c.launches for k, c in counters.items()},
+                "k_cap": cfg.k_cap, "k_pad": cfg.k_pad, "need_raw": need_raw,
+                "need_pad": need_pad,
+                "sat_gate_on": cfg.k_cap >= (SAT_MIN_SLOTS_PER_TILE
+                                             * grid_of(th, tw).num_tiles),
+                **{k: float(m[k]) for k in ("loss", "num_dropped")}}
+        del trainer
+        want = {"K1": 1, "K2": 1, "K3": 1, "K4": int(step["sat_gate_on"]),
+                "M1": 0, "M2": 0}
+        if (not np.isfinite(step["loss"]) or step["num_dropped"]
+                or step["launches"] != want):
+            raise AssertionError(f"the Trainer step at {th}x{tw}: {step}")
+        res["steps"][f"{th}x{tw}"] = step
+        emit("tiles_step", tile=f"{th}x{tw}", n=N_REF, card=card, **step)
+    torch.cuda.empty_cache()
+
+    # rasterize fwd+bwd on bench.py's 500k scene, the kernels held; the
+    # scene and each shape's k_cap serve the sweep too
+    cam, arrays = build_scene(TILES_N, H, W, dev)
+    sized_all = tiles_mod.size_shapes(cam, arrays)
+    bg = torch.zeros(3, device=dev)
+    for th, tw in TILE_SHAPES:
+        shape = f"{th}x{tw}"
+        sized = sized_all[th, tw]
+        cfg = RasterizeConfig(k_cap=sized["k_cap"], tile_h=th, tile_w=tw)
+        leaves = [x.clone().requires_grad_(True) for x in arrays]
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        st = stage(*leaves, cam, config=cfg)
+        g = st.grid
+        out_p = BlendFn.apply(st.payload_f32, st.payload_aux,
+                              st.binned.tile_starts, g, g.padded_height,
+                              g.padded_width)
+        ro = raster_out(st, out_p[:, :H, :W], bg)
+        loss = ro.rgb.square().mean() + 0.01 * ro.depth.square().mean()
+        (dout,) = torch.autograd.grad(loss, out_p, retain_graph=True)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        gate = st.sat_counts is not None
+        want = {"K1": 1, "K2": 1, "K3": 1, "K4": int(gate), "M1": 0, "M2": 0}
+        if launches != want:
+            raise AssertionError(f"fwd+bwd at {shape}: launches {launches}, "
+                                 f"expected {want}")
+        if not all(torch.isfinite(x).all() for x in grads):
+            raise AssertionError(f"fwd+bwd at {shape}: gradients not finite")
+        if int(st.binned.num_dropped):
+            raise AssertionError(f"fwd+bwd at {shape} drops instances")
+        checks = tile_kernel_checks(st, out_p, dout,
+                                    tile_subset(st.binned.tile_starts, g))
+        res["shapes"][shape] = {"k_cap": sized["k_cap"], "need": sized["need"],
+                                "tiles": g.num_tiles, "sat_gate_on": gate,
+                                "loss": float(loss.detach()),
+                                "launches": launches,
+                                **checks}
+        emit("tiles_check", tile=shape, n=TILES_N, card=card,
+             limit=K2_RTOL, held=K2_SCALE, **res["shapes"][shape])
+        del st, out_p, dout, grads, leaves, ro, loss
+        torch.cuda.empty_cache()
+
+    # the sweep (r05_tiles.py), every kernel's launches counted in it
+    res["sweep"] = tiles_mod.sweep(
+        device=dev, emit=lambda **kw: emit("tiles_sweep", **kw),
+        scene=(cam, arrays), sized=sized_all)
+    del cam, arrays
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = {k: sum(x["launches"][k] for x in res["shapes"].values())
+                       + sum(x["launches"][k] for x in res["steps"].values())
+                       for k in counters}
+    emit("tiles", seconds=res["seconds"], launches=res["launches"], card=card)
+    return res
+
+
+# timed calls of each probe line, and its profiled windows' calls: the
+# probes' own CLIs time 20 (PERF.md keeps theirs); here they are driven
+PROBE_ITERS, PROBE_WARMUP = 2, 1
+DEBUG_ITERS = 50                    # r12's probe, cut from 200 and 300
+
+
+def probes_phase(dev, card) -> dict:
+    """Phase 17b: the main path's probes at bench shape (see the module
+    docstring), every launch counter set to 0 just before. Returns their
+    results and the launches."""
+    from vegs_torch.perf import (binning_probes, quality_debug,
+                                 satcull_analysis, stages)
+
+    t0 = time.perf_counter()
+    counters = all_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    kw = {"device": dev, "iters": PROBE_ITERS, "warmup": PROBE_WARMUP}
+    parts, t1 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t1
+        parts[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+
+    res = {"stages": stages.run(**kw, emit=lambda **x: emit("stages", **x))}
+    lap("stages")
+    res["bisect"] = stages.bisect(**kw, emit=lambda **x: emit("stages", **x))
+    lap("bisect")
+    for name, fn in binning_probes.PROBES.items():
+        res[name] = fn(**kw, emit=lambda **x: emit("binning_probes", **x))
+        lap(name)
+    exact = res["r06"]["delta_exact"]
+    if not (exact["rec_cols"] and exact["gidx_col"]):
+        raise AssertionError(f"r06's delta map is not exact: {exact}")
+    if not res["r11"]["scan_exact"]:
+        raise AssertionError("r11's scatter and cumsum differ from the gather")
+    res["satcull"] = satcull_analysis.run(
+        device=dev, emit=lambda **x: emit("satcull_analysis", **x))
+    lap("satcull")
+    res["debug"] = [quality_debug.probe(h, w, iters=DEBUG_ITERS, device=dev,
+                                        log=lambda ln: emit(
+                                            "quality_debug", **json.loads(ln)))
+                    for h, w, _ in quality_debug.PROBES]
+    res["grads"] = [quality_debug.grads(h, w, device=dev,
+                                        log=lambda ln: emit(
+                                            "quality_debug", **json.loads(ln)))
+                    for h, w in quality_debug.SIZES]
+    lap("quality_debug")
+    for g in res["grads"]:
+        for name, x in g["grads"].items():
+            if not (np.isfinite(x["rms"]) and x["nonzero"] > 0):
+                raise AssertionError(f"r12b {g['size']} {name}: {x}")
+    res["launches"] = {k: c.launches for k, c in counters.items()}
+    res["seconds"] = time.perf_counter() - t0
+    emit("probes", launches=res["launches"], seconds=res["seconds"],
+         parts=parts, card=card)
+    missing = [k for k in ("K1", "K2", "K3") if not res["launches"][k]]
+    if missing:
+        raise AssertionError(f"the probes never launched {missing}")
+    if res["launches"]["M1"] or res["launches"]["M2"]:
+        raise AssertionError(f"the probes launched M1 or M2: "
+                             f"{res['launches']}")
+    return res
+
+
 def kernel_times(kernel, plain, library) -> dict:
     """The card's own ms per call (torch.profiler: the summed durations of
     the device operations each call launches, without host gaps) of a
@@ -3855,8 +4184,7 @@ def perf_phase(dev, card) -> dict:
     t0 = time.perf_counter()
     data = micro3.make_data(dev)
     res = {"M2": m2_check(data, card), "M1": m1_check(data, card)}
-    counters = {**main_counters(), "M1": micro3.psum_consume,
-                "M2": micro3.transpose}
+    counters = all_counters()
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -3930,8 +4258,11 @@ def main(argv=None) -> int:
     occupancy["satcount"] = satcull.kernel_info(256)
     occupancy.update({f"segreduce {dt}": segreduce.kernel_info(dt)
                       for dt in (torch.bfloat16, torch.float32)})
+    wide = {f"blend_bwd {dt} {px} pixels": blend_cuda.kernel_info(
+        "blend_bwd", dt, px) for px in (512, 1024)
+        for dt in (torch.bfloat16, torch.float32)}
     emit("build", seconds=b["seconds"], built=b["built"], ptxas=ptxas,
-         occupancy_16x16=occupancy,
+         occupancy_16x16=occupancy, occupancy_wide_tiles=wide,
          dir=str(kernels.build_dir().relative_to(HERE)))
 
     # -- 3. K4 at a saturating reduced scene --------------------------------
@@ -4205,7 +4536,12 @@ def main(argv=None) -> int:
          grad["colour_flip_share"], COLOUR_MAX_FLIP_SHARE,
          grad["colour_control_flip_share"])
 
-    del scene, views, frames, st, on, off
+    del views, frames, st, on, off
+    torch.cuda.empty_cache()
+
+    # -- 9b. wide tiles (16x32, 32x16, 32x32) through the main path ------------
+    tiles = tiles_phase(dev, card, scene)
+    del scene
     torch.cuda.empty_cache()
 
     # -- 10. the dynamic-scene training path at full width ---------------------
@@ -4245,6 +4581,10 @@ def main(argv=None) -> int:
 
     # -- 17. the measurement path, on a card freed of the earlier phases ----
     perf = perf_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 17b. the main path's probes at bench shape --------------------------
+    probes = probes_phase(dev, card)
 
     # -- 18. summary ---------------------------------------------------------
     launches = {**train["launches"]}
@@ -4257,7 +4597,11 @@ def main(argv=None) -> int:
     # launches_parallel: the parallel phase's DP and TP steps and sharded
     # renders, D = 1 and both D = 2 ranks; launches_quality: the quality
     # phase's arm A (1,500 steps and its evaluations); launches_tp_quality:
-    # the tp_quality phase's TP steps, every rank of both runs
+    # the tp_quality phase's TP steps, every rank of both runs;
+    # launches_tiles: the tiles phase's three Trainer steps and three
+    # fwd+bwd (one a wide shape; its sweep is not counted); launches_probes:
+    # the probes phase's stage split, bisect, binning probes, sat-cull
+    # analysis and debug trails
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
@@ -4270,7 +4614,9 @@ def main(argv=None) -> int:
          "launches_guide": guide["launches"]["K1"],
          "launches_parallel": par["launches"]["K1"],
          "launches_quality": quality["launches"]["K1"],
-         "launches_tp_quality": tpq["launches"]["K1"], "matches_plain": True,
+         "launches_tp_quality": tpq["launches"]["K1"],
+         "launches_tiles": tiles["launches"]["K1"],
+         "launches_probes": probes["launches"]["K1"], "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -4287,7 +4633,9 @@ def main(argv=None) -> int:
          "launches_guide": guide["launches"]["K2"],
          "launches_parallel": par["launches"]["K2"],
          "launches_quality": quality["launches"]["K2"],
-         "launches_tp_quality": tpq["launches"]["K2"], "matches_plain": True,
+         "launches_tp_quality": tpq["launches"]["K2"],
+         "launches_tiles": tiles["launches"]["K2"],
+         "launches_probes": probes["launches"]["K2"], "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -4295,7 +4643,21 @@ def main(argv=None) -> int:
          "ms": k2_ms, "plain_ms": k2["plain_ms"],
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "ms_nocull": k2c["ms_nocull"],
-         "cull_skipped_share": k2c["pairs"]["skipped_share"]},
+         "cull_skipped_share": k2c["pairs"]["skipped_share"],
+         "tile": "16x16",
+         "tiles": {shape: {
+             "ms": x["k2"]["ms"], "bound_ms": x["k2"]["bound_ms"],
+             "bound_by": x["k2"]["bound_by"],
+             "launches": x["launches"]["K2"]
+             + tiles["steps"][shape]["launches"]["K2"],
+             "max_abs_err": x["k2"]["max_abs_err"],
+             "reading": max(x["k2"][rows]["reading"][scale]
+                            for rows, scale in K2_SCALE.items()),
+             "tiles_held": x["k2"]["tiles_held"],
+             "plain_ms_held_tiles": x["k2"]["plain_ms_held_tiles"],
+             "bit_identical_rerun": x["k2"]["bit_identical_rerun"],
+             "scene": f"{TILES_N:,} Gaussians, 376x1408"}
+             for shape, x in tiles["shapes"].items()}},
         {"name": "K3 segreduce", "route": "cuda",
          "source": "vegs_torch/csrc/segreduce.cu",
          "replaces": "vegs_tpu/ops/segreduce.py:46",
@@ -4306,7 +4668,9 @@ def main(argv=None) -> int:
          "launches_guide": guide["launches"]["K3"],
          "launches_parallel": par["launches"]["K3"],
          "launches_quality": quality["launches"]["K3"],
-         "launches_tp_quality": tpq["launches"]["K3"], "matches_plain": True,
+         "launches_tp_quality": tpq["launches"]["K3"],
+         "launches_tiles": tiles["launches"]["K3"],
+         "launches_probes": probes["launches"]["K3"], "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
@@ -4327,7 +4691,9 @@ def main(argv=None) -> int:
          "launches_guide": guide["launches"]["K4"],
          "launches_parallel": par["launches"]["K4"],
          "launches_quality": quality["launches"]["K4"],
-         "launches_tp_quality": tpq["launches"]["K4"], "matches_plain": True,
+         "launches_tp_quality": tpq["launches"]["K4"],
+         "launches_tiles": tiles["launches"]["K4"],
+         "launches_probes": probes["launches"]["K4"], "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
@@ -4342,6 +4708,8 @@ def main(argv=None) -> int:
          "launches_tools": tools["launches"]["M1"],
          "launches_quality": quality["launches"]["M1"],
          "launches_tp_quality": tpq["launches"]["M1"],
+         "launches_tiles": tiles["launches"]["M1"],
+         "launches_probes": probes["launches"]["M1"],
          "matches_plain": True, "max_abs_err": m1["max_abs_err"],
          "case": f"{m1['dtype']} {m1['layout']}",
          "ms": m1["ms"], "plain_ms": m1["plain_ms"],
@@ -4355,6 +4723,8 @@ def main(argv=None) -> int:
          "launches_tools": tools["launches"]["M2"],
          "launches_quality": quality["launches"]["M2"],
          "launches_tp_quality": tpq["launches"]["M2"],
+         "launches_tiles": tiles["launches"]["M2"],
+         "launches_probes": probes["launches"]["M2"],
          "matches_plain": True, "max_abs_err": m2["max_abs_err"],
          "case": m2["dtype"],
          "ms": m2["ms"], "plain_ms": m2["plain_ms"],

@@ -228,20 +228,14 @@ def _k2_readings(k, r, group, keep, ulp):
     return {"row": float(by_row.max()), "group": float(by_group.max())}
 
 
-@pytest.mark.parametrize("aux", ["f32", "bf16"])
-def test_blend_bwd_kernel_matches_plain(cuda, aux):
-    """K2 against its plain version, on the instances of tiles without a
-    stop flip: |d| <= 1e-4 of the largest |plain| of the f32 row, and on
-    the aux rows of the largest |plain| of the row in the instance's group
-    (the 256-instance batch of its tile), plus one bf16 ulp of the plain
-    value on bf16 rows. The f32 rows are not held per group: their low-T
-    instances cancel in f32 (dL = tail - cum), in the kernel and the plain
-    version alike. The control -- the kernel's output 1% off on the
-    instances after each tile's first 256 -- must fail both limits. The
-    scene is translucent enough that those deep instances carry gradient,
-    and some pixels still stop."""
+def _k2_check(cuda, aux, tile):
+    """K2 against its plain version at `tile` (see
+    test_blend_bwd_kernel_matches_plain). Returns the kernel's dpf, dpa
+    and its arguments."""
+    th, tw = tile
     arrays, cam = _scene(cuda, opacity_range=(0.02, 0.2))
-    st = stage(*arrays, cam, config=CFG._replace(payload_dtype=aux))
+    st = stage(*arrays, cam, config=CFG._replace(payload_dtype=aux,
+                                                 tile_h=th, tile_w=tw))
     g = st.grid
     ts = st.binned.tile_starts
     args = (st.payload_f32, st.payload_aux, ts)
@@ -258,8 +252,8 @@ def test_blend_bwd_kernel_matches_plain(cuda, aux):
     torch.cuda.synchronize()
     flips = _flip_tiles(stop, ref_stop, g)
     assert int(flips.sum()) <= 0.01 * g.num_tiles
-    tile, deep, group = _deep_and_groups(ts, kpf.shape[1], g)
-    keep = ~flips[tile]
+    tile_of, deep, group = _deep_and_groups(ts, kpf.shape[1], g)
+    keep = ~flips[tile_of]
     assert int((deep & (rpf != 0).any(dim=0)).sum()) > 1000
     assert float(out[11].min()) < 1e-3  # pixels do stop
     ctl = 1.0 + CONTROL_ERR * deep.float()
@@ -269,11 +263,42 @@ def test_blend_bwd_kernel_matches_plain(cuda, aux):
         k_ctl = (k.float() * ctl).to(k.dtype).float()
         got[rows] = (_k2_readings(k.float(), r.float(), group, keep, u),
                      _k2_readings(k_ctl, r.float(), group, keep, u))
-    print(f"K2 readings, {aux} aux (sound, control): {got}")
+    print(f"K2 readings, {th}x{tw}, {aux} aux (sound, control): {got}")
     for rows, scale in (("f32", "row"), ("aux", "group")):
         sound, control = got[rows]
         assert sound[scale] <= K2_RTOL < control[scale], (rows, got)
     assert int((kpf[5] != 0).sum()) > 1000
+    return kpf, kpa, (*args, out, dout, g)
+
+
+@pytest.mark.parametrize("aux", ["f32", "bf16"])
+def test_blend_bwd_kernel_matches_plain(cuda, aux):
+    """K2 against its plain version, on the instances of tiles without a
+    stop flip: |d| <= 1e-4 of the largest |plain| of the f32 row, and on
+    the aux rows of the largest |plain| of the row in the instance's group
+    (the 256-instance batch of its tile), plus one bf16 ulp of the plain
+    value on bf16 rows. The f32 rows are not held per group: their low-T
+    instances cancel in f32 (dL = tail - cum), in the kernel and the plain
+    version alike. The control -- the kernel's output 1% off on the
+    instances after each tile's first 256 -- must fail both limits. The
+    scene is translucent enough that those deep instances carry gradient,
+    and some pixels still stop."""
+    _k2_check(cuda, aux, (16, 16))
+
+
+@pytest.mark.parametrize("aux", ["f32", "bf16"])
+@pytest.mark.parametrize("tile", [(16, 32), (32, 16), (32, 32)],
+                         ids=["16x32", "32x16", "32x32"])
+def test_blend_bwd_wide_tiles_match_plain(cuda, tile, aux):
+    """K2's 16- and 32-warp builds (tiles of 512 and 1024 pixels) against
+    the plain version, under the limits and control of the 16x16 test; and
+    two launches on the same inputs equal to the bit (the tile's sums stay
+    in one block, in warp order: no atomics)."""
+    kpf, kpa, args = _k2_check(cuda, aux, tile)
+    again = blend_cuda.blend_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(again[0]), _bits(kpf))
+    assert torch.equal(_bits(again[1]), _bits(kpa))
 
 
 def _bits(x):
@@ -284,12 +309,13 @@ def _bits(x):
 def test_blend_cull_bit_identical(cuda, aux):
     """K1 (out, stop) and K2 (dpf, dpa) with the per-warp footprint cull
     equal, to the bit, the same kernels with the cull compiled out, and the
-    main path's wrappers give the culled results; K1 also on 16x32 tiles
-    (K2 takes at most 256 pixels a tile). The cull skips warp-instance
+    main path's wrappers give the culled results, at 16x16, 16x32, 32x16
+    and 32x32 tiles (K2's 8-, 16- and 32-warp builds). The cull skips
+    warp-instance
     pairs even in this scene of large splats; without it the warps walk
     every pair they consider."""
     arrays, cam = _scene(cuda, opacity_range=(0.02, 0.6))
-    for th, tw in ((16, 16), (16, 32)):
+    for th, tw in ((16, 16), (16, 32), (32, 16), (32, 32)):
         st = stage(*arrays, cam, config=CFG._replace(
             payload_dtype=aux, tile_h=th, tile_w=tw))
         g = st.grid
@@ -308,8 +334,6 @@ def test_blend_cull_bit_identical(cuda, aux):
         assert c_off["walked"] == c_off["warp_instances"] > 0
         assert c_on["warp_instances"] == c_off["warp_instances"]
         assert c_on["skipped_share"] > 0.05
-        if th * tw > blend_cuda.BWD_MAX_PIXELS:
-            continue
         dout = torch.randn(on.shape, device=cuda,
                            generator=torch.Generator(cuda).manual_seed(1))
         n0 = blend_cuda.blend_bwd.launches
@@ -320,7 +344,7 @@ def test_blend_cull_bit_identical(cuda, aux):
         assert blend_cuda.blend_bwd.launches == n0
         mpf, mpa = blend_cuda.blend_bwd(*args[:3], on, dout, g)
         torch.cuda.synchronize()
-        print(f"K2 {aux}: cull {b_on}, no cull {b_off}")
+        print(f"K2 {aux} {th}x{tw}: cull {b_on}, no cull {b_off}")
         for a, b, c in ((pf1, pf0, mpf), (pa1, pa0, mpa)):
             assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(c),
                                                                    _bits(a))
@@ -351,6 +375,21 @@ def test_blend_kernel_occupancy(cuda, lib):
         print(f"{lib} {dtype}: {info}")
         assert info["local_bytes"] == 0 and info["registers"] > 0
         assert info["blocks_per_sm"] >= (3 if lib == "blend_bwd" else 4)
+
+
+def test_blend_bwd_wide_builds_occupancy(cuda):
+    """The runtime's view of K2's wide builds: the 16-warp one (512-pixel
+    tiles) with two blocks per SM, the 32-warp one (1024) with one, each
+    held to 64 registers a thread (their spills are printed, not held); a
+    tile over 1024 pixels is refused."""
+    for pixels, blocks in ((512, 2), (1024, 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            info = blend_cuda.kernel_info("blend_bwd", dtype, pixels)
+            print(f"blend_bwd {pixels} pixels {dtype}: {info}")
+            assert 0 < info["registers"] <= 64
+            assert info["blocks_per_sm"] >= blocks
+    with pytest.raises(RuntimeError):
+        blend_cuda.kernel_info("blend_bwd", torch.float32, 2048)
 
 
 K3_RTOL = 1e-5  # K3 against its plain version, of the segment's sum of |x|

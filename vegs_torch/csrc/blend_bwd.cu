@@ -33,9 +33,26 @@
 // trees (90 shuffles and adds, against ~30 operations of gradient math),
 // three block barriers per 32 instances and a serial 8-warp sum.
 //
-// Design: one block per tile of at most 256 pixels, one thread per pixel,
-// each warp on a compact 8x4 rectangle (splat.cuh: thread_pixel), three
-// blocks per SM (MIN_BLOCKS; 61.5 KB of shared memory each with bf16 aux).
+// Design: one block per tile, one thread per pixel, each warp on a compact
+// 8x4 rectangle (splat.cuh: thread_pixel). The block's warp count NW is a
+// template parameter, the least build that holds the tile: 8 warps for
+// tiles of up to 256 pixels (16x16), 16 for 512 (16x32, 32x16), 32 for
+// 1024 (32x32). What bounds each build (per SM: 65,536 registers, 228 KB
+// of shared memory; a block may take 227 KB):
+//   NW = 8:  three blocks per SM (MIN_BLOCKS; 61.5 KB of shared memory
+//            each with bf16 aux, s_red 34.8 KB), at most 85 registers a
+//            thread (it takes 71);
+//   NW = 16: two blocks per SM, so at most 64 registers a thread (2 x 512
+//            x 64 = 65,536); s_red 69.6 KB, 96.4 KB a block with bf16 aux
+//            (106.6 KB with f32), two of them fit;
+//   NW = 32: one block per SM, at most 64 registers a thread (1,024
+//            threads at the 16x16 build's 71 would need 72,704): the
+//            compiler spills what does not fit. s_red is 139.3 KB, 166.1
+//            KB a block with bf16 aux (176.4 KB with f32).
+// So a wide tile keeps its pixels in one block and every instance's sum
+// over the tile stays the in-block warp-ordered sum below: no sum crosses
+// blocks, no atomics, and the result does not change from run to run at
+// any tile shape.
 // 256-instance batches are staged in shared memory with cp.async, the next
 // one while the current one is walked, with each instance's footprint box
 // computed once per batch (splat.cuh). Per 32-instance sub-batch a warp
@@ -65,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "splat.cuh"
 
 namespace {
@@ -74,8 +93,22 @@ constexpr int N_RED = 17;     // reduced per instance: dmean x/y, dconic
                               // a/b/c, dop, the 11 channels
 constexpr int SUB = 32;       // instances per reduction sub-batch
 constexpr int NCH = SUB / 32;
-constexpr int MAX_WARPS = 8;  // 256 pixels per tile
-constexpr int MIN_BLOCKS = 3;  // resident blocks per SM the build must allow
+// Resident blocks per SM each build must allow (see the design note): the
+// 16x16 build's three; two and one for the wide builds, which caps their
+// registers at 64 a thread.
+constexpr int min_blocks(int nw) { return nw <= 8 ? 3 : (nw <= 16 ? 2 : 1); }
+
+// Calls f(std::integral_constant<int, NW>{}) with the least build NW that
+// holds a tile of `threads` pixels (see the design note); a tile no build
+// takes is refused.
+template <typename F>
+int with_warps(int threads, F f) {
+  if (threads <= 0 || threads % 32 != 0 || threads > 32 * 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (threads <= 8 * 32) return f(std::integral_constant<int, 8>{});
+  if (threads <= 16 * 32) return f(std::integral_constant<int, 16>{});
+  return f(std::integral_constant<int, 32>{});
+}
 
 // The output row of each reduced value: dpf row r as r, dpa row r as -1-r.
 // Values 6-16 are the channels rgb, depth, quat wxyz, scale.
@@ -89,12 +122,12 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
-template <typename AuxT>
+template <typename AuxT, int NW>
 struct Shared {
   vegs::Stage<AuxT> st[2];
   float2 box[vegs::PAD_ALIGN];
-  float red[2][MAX_WARPS][N_RED][SUB];
-  unsigned wrote[2][MAX_WARPS][NCH];  // per warp: the entries it wrote
+  float red[2][NW][N_RED][SUB];
+  unsigned wrote[2][NW][NCH];  // per warp: the entries it wrote
 };
 
 // *s + *e += x * y, compensated: the product's rounding error (an FMA) and
@@ -155,8 +188,8 @@ __device__ __forceinline__ int red_row(int lane) {
   return n > 0 ? base : -1;
 }
 
-template <typename AuxT, bool CULL>
-__global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
+template <typename AuxT, bool CULL, int NW>
+__global__ void __launch_bounds__(NW * 32, min_blocks(NW))
 blend_bwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
                  const int* __restrict__ tile_starts, int64_t k, int ntx,
                  int tile_h, int tile_w, int hp, int wp, bool vec,
@@ -164,7 +197,7 @@ blend_bwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
                  float* __restrict__ dpf, AuxT* __restrict__ dpa,
                  unsigned long long* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Shared<AuxT>& sh = *reinterpret_cast<Shared<AuxT>*>(smem);
+  Shared<AuxT, NW>& sh = *reinterpret_cast<Shared<AuxT, NW>*>(smem);
 
   const int tile = blockIdx.x;
   int lx, ly;
@@ -309,9 +342,9 @@ blend_bwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
         const int row = OUT_ROW[r];
         for (int jj = lane; jj < ns; jj += 32) {
           float t = 0.0f;
-          for (int w8 = 0; w8 < nwarps; ++w8)
-            if ((sh.wrote[sb][w8][jj >> 5] >> (jj & 31)) & 1u)
-              t = __fadd_rn(t, sh.red[sb][w8][r][jj]);
+          for (int wi = 0; wi < nwarps; ++wi)
+            if ((sh.wrote[sb][wi][jj >> 5] >> (jj & 31)) & 1u)
+              t = __fadd_rn(t, sh.red[sb][wi][r][jj]);
           const size_t g = static_cast<size_t>(b0 + s0 + jj);
           if (row < 0)
             put(dpa, (-1 - row) * k + g, t);
@@ -334,13 +367,13 @@ blend_bwd_kernel(const float* __restrict__ pf, const AuxT* __restrict__ pa,
   }
 }
 
-template <typename AuxT, bool CULL>
+template <typename AuxT, bool CULL, int NW>
 int launch(const float* pf, const void* pa, const int* tile_starts,
            int64_t k, int ntx, int nty, int tile_h, int tile_w,
            const float* out, const float* dout, float* dpf, void* dpa,
            unsigned long long* stats, void* stream) {
-  constexpr size_t smem = sizeof(Shared<AuxT>);
-  auto kern = blend_bwd_kernel<AuxT, CULL>;
+  constexpr size_t smem = sizeof(Shared<AuxT, NW>);
+  auto kern = blend_bwd_kernel<AuxT, CULL, NW>;
   const cudaError_t e = vegs::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const bool vec = reinterpret_cast<uintptr_t>(pf) % 16 == 0 &&
@@ -358,18 +391,25 @@ int dispatch(const float* pf, const void* pa, int aux_bf16,
              const int* tile_starts, int64_t k, int ntx, int nty, int tile_h,
              int tile_w, const float* out, const float* dout, float* dpf,
              void* dpa, unsigned long long* stats, void* stream) {
-  if (aux_bf16)
-    return launch<__nv_bfloat16, CULL>(pf, pa, tile_starts, k, ntx, nty,
-                                       tile_h, tile_w, out, dout, dpf, dpa,
-                                       stats, stream);
-  return launch<float, CULL>(pf, pa, tile_starts, k, ntx, nty, tile_h, tile_w,
-                             out, dout, dpf, dpa, stats, stream);
+  return with_warps(tile_h * tile_w, [&](auto nw) {
+    constexpr int NW = decltype(nw)::value;
+    if (aux_bf16)
+      return launch<__nv_bfloat16, CULL, NW>(pf, pa, tile_starts, k, ntx, nty,
+                                             tile_h, tile_w, out, dout, dpf,
+                                             dpa, stats, stream);
+    return launch<float, CULL, NW>(pf, pa, tile_starts, k, ntx, nty, tile_h,
+                                   tile_w, out, dout, dpf, dpa, stats, stream);
+  });
 }
 
+// The build a tile of `threads` pixels launches (see with_warps).
 template <typename AuxT>
 int info(int threads, int* res) {
-  return vegs::kernel_info(blend_bwd_kernel<AuxT, true>, threads,
-                           sizeof(Shared<AuxT>), res);
+  return with_warps(threads, [&](auto nw) {
+    constexpr int NW = decltype(nw)::value;
+    return vegs::kernel_info(blend_bwd_kernel<AuxT, true, NW>, threads,
+                             sizeof(Shared<AuxT, NW>), res);
+  });
 }
 
 }  // namespace
@@ -403,7 +443,7 @@ extern "C" int vegs_blend_bwd_nocull(const float* pf, const void* pa,
 
 // Registers per thread, shared memory per block (bytes), resident blocks
 // per SM and local (spill) bytes per thread of the main path's kernel for
-// tiles of `threads` pixels, into res[0..3].
+// tiles of `threads` pixels (the build with_warps picks), into res[0..3].
 extern "C" int vegs_blend_bwd_info(int aux_bf16, int threads, int* res) {
   return aux_bf16 ? info<__nv_bfloat16>(threads, res)
                   : info<float>(threads, res);

@@ -86,9 +86,11 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     mu1 = filt(img1)
     mu2 = filt(img2)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    # E[x^2] - mu^2 can dip below 0 in float; true variances are >= 0
-    sigma1_sq = torch.clamp(filt(img1 * img1) - mu1_sq, min=0.0)
-    sigma2_sq = torch.clamp(filt(img2 * img2) - mu2_sq, min=0.0)
+    # E[x^2] - mu^2 can dip below 0 in float; true variances are >= 0.
+    # torch.maximum, as jnp.maximum: half the gradient where it is exactly 0
+    zero = img1.new_zeros(())
+    sigma1_sq = torch.maximum(filt(img1 * img1) - mu1_sq, zero)
+    sigma2_sq = torch.maximum(filt(img2 * img2) - mu2_sq, zero)
     sigma12 = filt(img1 * img2) - mu12
     c1, c2 = 0.01**2, 0.03**2
     ssim_map = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (

@@ -5,20 +5,22 @@ Counterpart of vegs_tpu/ops/blend_pallas.py.
 
 `blend` replaces the Pallas kernel `_fwd_kernel` (blend_pallas.py:201,
 launched by `_blend_fwd_impl`:464). On a CUDA tensor it launches the
-hand-written kernel in `csrc/blend_fwd.cu` (one block per 16x16 tile, one
-thread per pixel, each warp on an 8x4 rectangle, 256-instance batches
-staged in shared memory with cp.async, each warp walking only the
-instances whose footprint box reaches its pixels, log-T carry, block-wide
-early exit -- see the source note there: the kernel is bound by its
-per-pixel scalar math, not by memory). On a CPU tensor it runs
+hand-written kernel in `csrc/blend_fwd.cu` (one block per tile of up to
+1024 pixels, one thread per pixel, each warp on an 8x4 rectangle,
+256-instance batches staged in shared memory with cp.async, each warp
+walking only the instances whose footprint box reaches its pixels, log-T
+carry, block-wide early exit -- see the source note there: the kernel is
+bound by its per-pixel scalar math, not by memory). On a CPU tensor it runs
 `blend_ref_tiles`, the plain version, which walks each tile's padded range
 in 256-instance windows as dense [256, P] tensor ops over the spec's
 log-space trajectory.
 
 `blend_bwd` replaces `_bwd_kernel` (blend_pallas.py:274, launched by
 `_blend_bwd_impl`:502): the per-instance gradients from the forward output
-and its cotangent in one forward-walking sweep (`csrc/blend_bwd.cu`; plain
-version `blend_bwd_ref_tiles`). `BlendFn` is the differentiable blend (the
+and its cotangent in one forward-walking sweep (`csrc/blend_bwd.cu`, one
+block per tile, built for 8, 16 or 32 warps: tiles of up to 256, 512 or
+1024 pixels; plain version `blend_bwd_ref_tiles`). `check_tile_shape` is
+the tile shapes the kernels take. `BlendFn` is the differentiable blend (the
 counterpart of `_blend_cv`:560): K1 forward, K2 backward. Nothing falls back
 from a kernel to its plain version.
 
@@ -45,13 +47,32 @@ from .blend_ref import (ALPHA_CLAMP, ALPHA_MIN, N_ACCUM, OUT_CHANNELS, T_EPS,
 F32_ROWS = 8    # payload_f32 rows
 AUX_ROWS = 16   # payload_aux rows
 NEG_CAP = -80.0
-BWD_MAX_PIXELS = 256  # K2 stages one tile's pixels per block, at most 256
+MAX_PIXELS = 1024  # K1, K2 and K4 run one block per tile, a thread a pixel
 
 # The footprint box (csrc/splat.cuh): the conic's diagonal shrunk by
 # BOX_REL of (diagonal + |b|), tau = ln(255 op) inflated by BOX_TAU_REL and
 # BOX_TAU_ABS, a determinant under BOX_MIN_DET of a'c' taken as unbounded.
 BOX_REL, BOX_TAU_REL, BOX_TAU_ABS, BOX_MIN_DET = 1e-5, 1e-4, 1e-4, 1e-12
 ALPHA_MIN_F32 = torch.tensor(ALPHA_MIN, dtype=torch.float32)  # 1.0f / 255.0f
+
+
+def check_tile_shape(tile_h: int, tile_w: int) -> None:
+    """Raise ValueError for a tile shape the kernels do not take.
+
+    The JAX package's blend takes tiles whose tile_w is a multiple of 16
+    (bench.py:54-60: its Pallas kernels pack 8 tiles into one block whose
+    lane dimension must fill 128-lane registers). K1, K2 and K4 take those
+    of them with at most MAX_PIXELS pixels, a whole number of warps (an
+    even tile_h): 16x16, 16x32, 32x16, 32x32, ... . (The TPU kernels'
+    (tile_h, 8 tile_w) output blocks also need tile_h a multiple of 8,
+    unless one tile row covers the image.)"""
+    p = tile_h * tile_w
+    if tile_h <= 0 or tile_w <= 0 or tile_w % 16:
+        raise ValueError(f"tile {tile_h}x{tile_w}: tile_h must be positive "
+                         "and tile_w a positive multiple of 16")
+    if p > MAX_PIXELS or p % 32:
+        raise ValueError(f"tile {tile_h}x{tile_w}: the kernels take tiles "
+                         f"of a multiple of 32 pixels, at most {MAX_PIXELS}")
 
 
 def _round_up_f32(x: torch.Tensor) -> torch.Tensor:
@@ -375,8 +396,7 @@ def _ptr(t):
 def _launch(payload_f32, payload_aux, tile_starts, grid, hp, wp, stop,
             symbol="vegs_blend_fwd", stats=None):
     _contiguous(payload_f32, payload_aux, tile_starts)
-    if grid.tile_h * grid.tile_w > 1024 or (grid.tile_h * grid.tile_w) % 32:
-        raise ValueError("tile_h * tile_w must be a multiple of 32, <= 1024")
+    check_tile_shape(grid.tile_h, grid.tile_w)
     fn = _entry("blend_fwd", symbol, _FWD_ARGS)
     dev = payload_f32.device
     out = torch.empty((OUT_CHANNELS, hp, wp), dtype=torch.float32, device=dev)
@@ -416,10 +436,7 @@ blend.launches = 0  # K1 launches: incremented where the kernel is launched
 def _launch_bwd(payload_f32, payload_aux, tile_starts, out, dout, grid,
                 symbol="vegs_blend_bwd", stats=None):
     _contiguous(payload_f32, payload_aux, tile_starts, out, dout)
-    p = grid.tile_h * grid.tile_w
-    if p > BWD_MAX_PIXELS or p % 32:
-        raise ValueError("the blend backward needs tile_h * tile_w a "
-                         f"multiple of 32, <= {BWD_MAX_PIXELS}")
+    check_tile_shape(grid.tile_h, grid.tile_w)
     fn = _entry("blend_bwd", symbol, _BWD_ARGS)
     dev = payload_f32.device
     k = payload_f32.shape[1]

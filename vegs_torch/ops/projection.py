@@ -173,7 +173,9 @@ def project(
     dirs = dirs / torch.sqrt(torch.clamp(dir_sq, min=1e-24))
     k = sh_lib.num_sh_coeffs(sh_degree)
     rgb = sh_lib.eval_sh(sh_degree, shs[:, :k, :].transpose(1, 2), dirs) + 0.5
-    rgb = torch.clamp(rgb, min=0.0)
+    # torch.maximum, not torch.clamp: at rgb == 0 it passes half the
+    # gradient, as jnp.maximum does (clamp passes all of it)
+    rgb = torch.maximum(rgb, rgb.new_zeros(()))
 
     return Projected(
         means2d=means2d,

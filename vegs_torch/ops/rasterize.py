@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from .. import geometry
 from . import binning, blend_ref
+from .blend_cuda import check_tile_shape
 from .segreduce import gather_expand_bwd
 from .projection import CameraParams, Projected, project
 
@@ -176,6 +177,8 @@ def stage(
     """Project, bin, run the saturation prepass (K4) when it is on, lay out
     and gather the payload: every stage of `rasterize` before the blend."""
     backend = _resolve_backend(config, means3d.device)
+    if backend == "cuda":  # on a CPU tensor too: refuse what the card would
+        check_tile_shape(config.tile_h, config.tile_w)
     H, W = cam.height, cam.width
     grid = binning.TileGrid.for_image(H, W, config.tile_h, config.tile_w)
 

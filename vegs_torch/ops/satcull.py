@@ -34,7 +34,7 @@ import torch
 
 from .. import kernels
 from .binning import PAD_ALIGN, TileGrid
-from .blend_cuda import cull_counts, cull_variant
+from .blend_cuda import check_tile_shape, cull_counts, cull_variant
 from .blend_ref import ALPHA_CLAMP, ALPHA_MIN, T_EPS, splat_alpha
 
 NEG_CAP = -80.0
@@ -193,8 +193,7 @@ def _check_launch(grid: TileGrid, *ts):
     for t in ts:
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-    if grid.tile_h * grid.tile_w > 1024 or (grid.tile_h * grid.tile_w) % 32:
-        raise ValueError("tile_h * tile_w must be a multiple of 32, <= 1024")
+    check_tile_shape(grid.tile_h, grid.tile_w)
 
 
 _ROW_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

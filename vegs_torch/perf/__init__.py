@@ -14,7 +14,38 @@ scripts that reach a Pallas kernel):
   against the JAX package's recorded readings in QUALITY_TORCH.md;
 - `quality_tp`: the fully sharded trainer's quality runs against the
   single-device step at D spawned ranks (perf/quality_tp*.py), held
-  against QUALITY_TP_r02-r05 in QUALITY_TORCH_TP.md.
+  against QUALITY_TP_r02-r05 in QUALITY_TORCH_TP.md;
+- `tiles`: the tile-shape sweep at 500k Gaussians (perf/r05_tiles.py);
+- `stages`: the stage split and bisect at 500k (perf/stages_r02.py);
+- `binning_probes`: the binning and row-gather A/Bs (perf/r06_binning.py,
+  r08_binning2.py, r11_recscan.py);
+- `satcull_analysis`: what a tile-saturation cull could prune at 2.23M,
+  beside K4's and K1's prune (perf/r09_satcull_analysis.py);
+- `quality_debug`: the arm-A debug trails at 64x128 and 128x256
+  (perf/r12_quality_debug.py, r12b_grads.py).
 
 Each runs on the card, and fails without one, unless given device="cpu".
 """
+
+
+def main_counters() -> dict:
+    """The launch counters of the main paths' kernels: K1 and K2 (blend),
+    K3 (the gather's backward), K4 (the sat count on the payload rows).
+    Each is the wrapper whose `launches` counts its kernel's launches."""
+    from ..ops import blend_cuda, satcull, segreduce
+
+    return {"K1": blend_cuda.blend, "K2": blend_cuda.blend_bwd,
+            "K3": segreduce.gather_expand_bwd, "K4": satcull.satcount_gathered}
+
+
+def all_counters() -> dict:
+    """`main_counters` and the layout probes' kernels M1 and M2."""
+    from . import micro3
+
+    return {**main_counters(), "M1": micro3.psum_consume,
+            "M2": micro3.transpose}
+
+
+def launch_counts(counters: dict) -> dict:
+    """Each counter's launches so far."""
+    return {k: c.launches for k, c in counters.items()}

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from . import launch_counts, main_counters
 
 ROOT = Path(__file__).resolve().parents[2]
 REPORT = ROOT / "QUALITY_TORCH.md"
@@ -522,12 +523,7 @@ def pretrain_vae(models, images_chw, steps: int = PRETRAIN_STEPS,
 
 
 def _launches() -> dict:
-    from ..ops import blend_cuda, satcull, segreduce
-
-    return {"K1": blend_cuda.blend.launches,
-            "K2": blend_cuda.blend_bwd.launches,
-            "K3": segreduce.gather_expand_bwd.launches,
-            "K4": satcull.satcount_gathered.launches}
+    return launch_counts(main_counters())
 
 
 def _sync(dev) -> None:

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from . import all_counters, launch_counts
 from .quality import _card, _clone, _launches, _sync, psnr_band, within
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -485,10 +486,7 @@ def _agreed(comm, dropped, needed) -> tuple:
 def _counts() -> dict:
     """Every kernel's launch count in this process: K1-K4 and the layout
     probes M1, M2."""
-    from . import micro3
-
-    return {**_launches(), "M1": micro3.psum_consume.launches,
-            "M2": micro3.transpose.launches}
+    return launch_counts(all_counters())
 
 
 class _StepLaunches:

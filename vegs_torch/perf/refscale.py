@@ -22,8 +22,7 @@ plain versions, the pairs the blend and K4 walk, for `roofline`.
 Run on the card:  python -m vegs_torch.perf.refscale
 Settings (r09's names): VEGS_R09_N (default 2233571), VEGS_R09_TILES
 (default 16x16; e.g. 16x16,16x32), VEGS_R09_SAT (default 1; 0 = sat cull
-off). K2 takes tiles of at most 256 pixels, so at 16x32 only the forward
-runs.
+off).
 """
 
 from __future__ import annotations
@@ -210,15 +209,10 @@ def run(device=None, n: int = N_REF, h: int = H, w: int = W,
                 return rasterize(*arrays, cam, bg=bg,
                                  config=cfg._replace(forward_only=True))
 
-        if th * tw <= blend_cuda.BWD_MAX_PIXELS:
-            t = timed(f"[{spec}] full fwd+bwd", full_fb)
-            if "ms" in t:
-                emit(stage=f"[{spec}] full fwd+bwd Mpix/s",
-                     mpix_s=h * w / t["ms"] / 1e3, card=card)
-        else:
-            emit(stage=f"[{spec}] full fwd+bwd", ms=None,
-                 not_run=f"K2 takes tiles of at most "
-                         f"{blend_cuda.BWD_MAX_PIXELS} pixels", card=card)
+        t = timed(f"[{spec}] full fwd+bwd", full_fb)
+        if "ms" in t:
+            emit(stage=f"[{spec}] full fwd+bwd Mpix/s",
+                 mpix_s=h * w / t["ms"] / 1e3, card=card)
         timed(f"[{spec}] full forward", full_fwd)
 
     # -- the stages one by one, at 16x16 tiles -------------------------------

@@ -155,12 +155,13 @@ def queued_ms(fn, iters: int = PROFILE_ITERS, warmup: int = 3) -> float:
 def measure(fn, device: torch.device, iters: int = 20,
             warmup: int = 3) -> dict:
     """On a CUDA device: {"ms": stream time by CUDA events (`cuda_ms`),
-    **`device_profile`}; raises if the card's own time exceeds the stream's
-    by more than `DEVICE_OVER_STREAM` (the profiler then counted something
-    twice). On the CPU: {"cpu_ms": host time}, which is never a device
-    number."""
+    **`device_profile`} (windows of at most PROFILE_ITERS of the `iters`
+    calls); raises if the card's own time exceeds the stream's by more than
+    `DEVICE_OVER_STREAM` (the profiler then counted something twice). On
+    the CPU: {"cpu_ms": host time}, which is never a device number."""
     if device.type == "cuda":
-        t = {"ms": cuda_ms(fn, iters, warmup), **device_profile(fn)}
+        t = {"ms": cuda_ms(fn, iters, warmup),
+             **device_profile(fn, min(iters, PROFILE_ITERS))}
         if t["device_ms"] > DEVICE_OVER_STREAM * t["ms"]:
             raise RuntimeError(f"device time over stream time: {t}")
         return t

@@ -96,10 +96,10 @@ def render(
         sq = torch.sum(dirs * dirs, dim=1, keepdim=True)
         dirs = dirs / torch.sqrt(torch.clamp(sq, min=1e-24))
         k = sh_lib.num_sh_coeffs(active_sh_degree)
-        override_color = torch.clamp(
+        override_color = torch.maximum(  # as jnp.maximum at a tie
             sh_lib.eval_sh(active_sh_degree,
                            arrays.shs[:, :k, :].transpose(1, 2), dirs) + 0.5,
-            min=0.0)
+            arrays.means.new_zeros(()))
     return rasterize(
         arrays.means, arrays.quats, arrays.scales, arrays.opacities,
         arrays.shs, cam,
