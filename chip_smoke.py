@@ -320,13 +320,49 @@ Phases, one JSON line each; any failure exits non-zero:
                  128x256, cut to DEBUG_ITERS iterations each, and r12b's
                  gradient statistics at both sizes (quality_debug); each
                  line with the card; K1-K3 launched (probes);
+ 17c. micro -- the remaining perf scripts at their bench shapes, with every
+                 launch counter set to 0 just before: the glue
+                 micro-probes of micro_r02 (14), micro2_r02 (8), r03_micro
+                 (11) and r03_micro2 (6) at K = 2^21, N = 500,000
+                 (`vegs_torch.perf.micro`); the gather backward's pieces
+                 of r04_gebwd, r05_gebwd2, r05_segreduce and
+                 r05_segreduce2 (`gebwd`: K3 as the main path runs it and
+                 under the JAX contract); r03_bwd_bisect at 500k, k_cap
+                 2^21 (`stages.bwd_bisect`, every loss and gradient
+                 finite); r07_shard_pallas at 200k (`shard_check`: the
+                 D = 1 tile-sharded render under NCCL equal to
+                 `rasterize` to the bit, f32 and bf16, fwd+bwd of both, the
+                 fully sharded trainer's step at 50k); each line timed in
+                 PROBE_ITERS windows; K1-K3 and K3's JAX-contract entry
+                 launched, M1 and M2 not. Then K3 under the JAX contract
+                 at r05_segreduce2's shape (500,224 segments, the last 223
+                 empty) against `segment_reduce_ref` with phase 8's limit
+                 and control, the empty segments 0, card, plain, library
+                 and bound times (k3_contract_bench), and K3 as the main
+                 path runs it on r05_segreduce's permuted order and padded
+                 ends, with phase 8's limits and controls (k3_fused_r05);
+ 17d. legacy_quality -- r03 of `vegs_torch.perf.quality` in full
+                 (64x128, 17 cameras, 1,000 iterations: the mover with
+                 0.08 m of noise, normal init, the perceptual term, the
+                 tiny SD guiding in [750, 1000]), every launch counter set
+                 to 0 just before: its final held-out PSNR at or above the
+                 JAX package's 11.92 dB less `quality.PSNR_BAND_DB` (a
+                 one-sided limit: the port carries the fixes that JAX's
+                 run predates) and within that band of the port's own
+                 card reading (`quality.PORT_R03_FINAL`, 28.20 dB), its
+                 untrained reading at iteration 0 (the control) missing
+                 both, K1-K3 in every step. With
+                 --quality-out PATH its record also goes into that report;
  18. the kernels summary line (launches: the train phase's; launches_boxes:
      the boxes phase's; launches_cli: the cli phase's; launches_tools: the
      tools phase's `render_sets`; launches_guide: the guide phase's;
      launches_parallel: the parallel phase's, both D; launches_quality:
      the quality phase's arm A; launches_tp_quality: the tp_quality
      phase's TP steps, every rank; launches_tiles: the tiles phase's;
-     launches_probes: the probes phase's; K2's row also has its readings,
+     launches_probes: the probes phase's; launches_micro: the micro
+     phase's (K3's JAX-contract entry under its jax_contract, beside its
+     bench-shape readings); launches_legacy_quality: r03's; K2's row also
+     has its readings,
      ms and bound at each wide tile shape under "tiles"), then
      the card line, then the last line
      {"ok": true, "device": {...}}.
@@ -1019,6 +1055,15 @@ def compare_k3(cols, starts, ends):
             "control_reading": reading(short), "plain_ms": plain_s * 1e3}
 
 
+def k3_contract_library(cols, starts, ends):
+    """K3's JAX contract as one library call: `torch.segment_reduce` of the
+    summed columns with each segment's length (contiguous segments from
+    column 0). Returns the call."""
+    data = cols[:, :int(ends[-1])].contiguous()
+    lengths = (ends - starts).long().expand(cols.shape[0], -1).contiguous()
+    return lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=1)
+
+
 def k3_library(pay_f32, aux_dtype, gidx):
     """K3's library yardstick: autograd's own backward of the payload
     gather, as `GatherExpand` would run without K3 -- `pay_f32[gidx].T
@@ -1059,7 +1104,8 @@ def compare_k3_fused(k3_args, st):
     sum with each segment's last row left out. The library yardstick
     (`k3_library` on the `Staged` `st`'s payload rows and gather index) is
     held the same way against the kernel on rows 0..n-1 (the dummy row n
-    gathers the tail slots, and K3 gives it an empty segment)."""
+    gathers the tail slots, and K3 gives it an empty segment); without `st`
+    there is no yardstick to hold."""
     from vegs_torch.ops import segreduce
 
     d_pf, d_pa, order, ends = k3_args
@@ -1080,7 +1126,8 @@ def compare_k3_fused(k3_args, st):
         return float((d / mag[:x.shape[0], sl].clamp(min=1e-30)).max())
 
     n = ends.shape[0] - 1
-    lib = k3_library(st.pay_rows, d_pa.dtype, st.binned.gidx)(d_pf, d_pa)
+    lib = (None if st is None else
+           k3_library(st.pay_rows, d_pa.dtype, st.binned.gidx)(d_pf, d_pa))
 
     res = {"segments": int(ends.shape[0]), "rows": int(ends[-1]),
            "live_rows": int((order[:int(ends[-1])] < d_pf.shape[1]).sum()),
@@ -1094,10 +1141,11 @@ def compare_k3_fused(k3_args, st):
         ctl = short[:, sl].to(got[i].dtype)
         res[name] = {"reading": reading(got[i], ref[i], sl, u),
                      "control_reading": reading(ctl, ref[i], sl, u),
-                     "library_reading": reading(lib[i][:n], got[i][:n], sl,
-                                                u),
                      "max_abs_err": float((got[i].float()
                                            - ref[i].float()).abs().max())}
+        if lib is not None:
+            res[name]["library_reading"] = reading(lib[i][:n], got[i][:n],
+                                                   sl, u)
     res["max_abs_err"] = max(res[n]["max_abs_err"] for n in halves)
     if not res["layout"]["contiguous"]:
         raise AssertionError(f"fused K3 outputs not contiguous: {res}")
@@ -4089,6 +4137,151 @@ def probes_phase(dev, card) -> dict:
     return res
 
 
+def k3_contract_bench(dev, card) -> dict:
+    """K3 under the JAX contract at perf/r05_segreduce2.py's full shape
+    (`vegs_torch.perf.gebwd`: [24, 1,126,912] columns, 500,224 segments,
+    the last 223 empty) against `segment_reduce_ref` (compare_k3's limit
+    and control), the empty segments 0; card, plain and library
+    (`torch.segment_reduce` with the lengths) times, the bound from
+    `roofline.k3_work`."""
+    from vegs_torch.ops import segreduce
+    from vegs_torch.perf import gebwd, roofline
+
+    d = gebwd.r05s2_data(dev)
+    cols, starts, ends = d["cols"], d["starts"], d["ends"]
+    k3 = compare_k3(cols, starts, ends)
+    got = segreduce.segment_reduce_cols(cols, starts, ends)
+    empty = ends == starts
+    times = kernel_times(
+        lambda: segreduce.segment_reduce_cols(cols, starts, ends),
+        lambda: segreduce.segment_reduce_ref(cols, starts, ends),
+        k3_contract_library(cols, starts, ends))
+    b, by = roofline.bound_ms(roofline.Work(*roofline.k3_work(
+        cols.shape[0], int(ends[-1]), starts.shape[0])))
+    res = {**k3, **times, "bound_ms": b, "bound_by": by, "limit": K3_RTOL,
+           "empty_segments": int(empty.sum()),
+           "empty_zero": not bool(got[:, empty].any()),
+           "spans": segreduce.span_stats(ends)}
+    emit("k3_contract_bench", scene="r05_segreduce2's shape", card=card,
+         **res)
+    hold("K3 JAX contract at r05_segreduce2's shape", k3["reading"], K3_RTOL,
+         k3["control_reading"])
+    if (not res["empty_zero"]
+            or res["empty_segments"] < gebwd.ng_of(d.n) - d.n):
+        raise AssertionError(f"K3's empty segments: {res}")
+    return res
+
+
+def k3_fused_r05(dev, card) -> dict:
+    """K3 as the main path runs it (`gather_expand_bwd`) on
+    perf/r05_segreduce.py's cotangents, permuted `order` and padded `ends`
+    against its plain version, with phase 8's limits and controls."""
+    from vegs_torch.perf import gebwd
+
+    d = gebwd.r05s_data(dev)
+    args = (d["d_pf_t"], d["d_pa_t"], d["order"], d["ends"])
+    res = compare_k3_fused(args, None)
+    emit("k3_fused_r05", scene="r05_segreduce's shape", card=card,
+         limit=K3_RTOL, **res)
+    for rows in ("f32_rows", "aux_rows"):
+        hold(f"K3 fused on r05's spans, {rows}", res[rows]["reading"],
+             K3_RTOL, res[rows]["control_reading"])
+    return res
+
+
+def micro_phase(dev, card) -> dict:
+    """Phase 17c: the glue micro-probes, the gather backward's probes, the
+    backward bisect and the sharded-path check (see the module docstring),
+    every launch counter set to 0 just before; then K3 under the JAX
+    contract and as the main path runs it at the probes' bench shapes
+    against their plain versions."""
+    from vegs_torch.ops import segreduce
+    from vegs_torch.perf import gebwd, micro, shard_check, stages
+
+    t0 = time.perf_counter()
+    counters = all_counters()
+    torch.cuda.synchronize()
+    for c in (*counters.values(), segreduce.segment_reduce_cols):
+        c.launches = 0
+    kw = {"device": dev, "iters": PROBE_ITERS, "warmup": PROBE_WARMUP}
+    parts, t1 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t1
+        parts[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+
+    res = {"micro": micro.run(**kw, emit=lambda **x: emit("micro", **x))}
+    lap("micro")
+    res["gebwd"] = gebwd.run(**kw, emit=lambda **x: emit("gebwd", **x))
+    lap("gebwd")
+    res["bwd_bisect"] = stages.bwd_bisect(
+        **kw, emit=lambda **x: emit("bwd_bisect", **x))
+    lap("bwd_bisect")
+    res["shard"] = shard_check.run(
+        **kw, emit=lambda **x: emit("shard_check", **x))
+    lap("shard_check")
+    res["launches"] = {k: c.launches for k, c in counters.items()}
+    res["launches"]["K3 JAX contract"] = segreduce.segment_reduce_cols.launches
+    bad = {k: ln["loss"] for k, ln in res["bwd_bisect"]["lines"].items()
+           if not ln["finite"]}
+    if bad:
+        raise AssertionError(f"bwd_bisect: not finite: {bad}")
+    res["k3_contract"] = k3_contract_bench(dev, card)
+    res["k3_fused"] = k3_fused_r05(dev, card)
+    lap("k3_checks")
+    res["seconds"] = time.perf_counter() - t0
+    emit("micro_phase", launches=res["launches"], seconds=res["seconds"],
+         parts=parts, renders=res["shard"]["renders"], card=card)
+    missing = [k for k in ("K1", "K2", "K3", "K3 JAX contract")
+               if not res["launches"][k]]
+    if missing:
+        raise AssertionError(f"the micro phase never launched {missing}")
+    if res["launches"]["M1"] or res["launches"]["M2"]:
+        raise AssertionError(f"the micro phase launched M1 or M2: "
+                             f"{res['launches']}")
+    return res
+
+
+def legacy_quality_phase(dev, card) -> dict:
+    """Phase 17d: r03's run in full (`quality.run_r03`), every launch
+    counter set to 0 just before: its final held-out PSNR at or above
+    JAX's 11.92 dB less `quality.PSNR_BAND_DB` and within that band of the
+    port's own card reading (`quality.PORT_R03_FINAL`), its untrained
+    reading at iteration 0 (the control) missing both."""
+    from vegs_torch.perf import quality as q
+
+    t0 = time.perf_counter()
+    counters = all_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    rec = q.run_r03(device=dev, log=lambda m: None)
+    launches = {k: c.launches for k, c in counters.items()}
+    rows = q.held_legacy({"r03": rec}, q.PSNR_BAND_DB)
+    res = {"r03": rec, "launches": launches, "held": rows,
+           "seconds": time.perf_counter() - t0}
+    emit("legacy_quality", run="r03", card=card, trend=rec["trend"],
+         err_trend=rec["err_trend"], err_raw=rec["err_raw"],
+         guided_iters=rec["guided_iters"],
+         ms_per_step_median=rec["ms_per_step_median"], wall_s=rec["wall_s"],
+         kcap_path=rec["kcap_path"], launches=launches,
+         jax_final=q.JAX_R03[q.R03_ITERS][0],
+         port_final=q.PORT_R03_FINAL, psnr_band=q.PSNR_BAND_DB,
+         held=[{"held": r[0], "port": r[1], "reference": r[2],
+                "band": r[3], "within": r[4]} for r in rows],
+         seconds=res["seconds"])
+    missed = [r for r in rows if not r[4]]
+    if missed:
+        raise AssertionError(f"r03 misses {missed} (the last row is the "
+                             "untrained control: if it holds, the check is "
+                             "too loose)")
+    short = [k for k in ("K1", "K2", "K3") if launches[k] < q.R03_ITERS]
+    if short or launches["M1"] or launches["M2"]:
+        raise AssertionError(f"r03 launches {launches}")
+    return res
+
+
 def kernel_times(kernel, plain, library) -> dict:
     """The card's own ms per call (torch.profiler: the summed durations of
     the device operations each call launches, without host gaps) of a
@@ -4504,13 +4697,10 @@ def main(argv=None) -> int:
     cols, starts, ends = k3c_args
     k3c_ms = cuda_ms(lambda: segreduce.segment_reduce_cols(*k3c_args))
     total = int(ends[-1])
-    data = cols[:, :total].contiguous()
-    lengths = (ends - starts).long().expand(cols.shape[0], -1).contiguous()
-    lib = torch.segment_reduce(data, "sum", lengths=lengths, axis=1)
-    lib_err = float((lib - segreduce.segment_reduce_cols(*k3c_args)
+    k3c_lib = k3_contract_library(*k3c_args)
+    lib_err = float((k3c_lib() - segreduce.segment_reduce_cols(*k3c_args)
                      ).abs().max())
-    k3c_lib_ms = cuda_ms(lambda: torch.segment_reduce(
-        data, "sum", lengths=lengths, axis=1))
+    k3c_lib_ms = cuda_ms(k3c_lib)
     k3_bytes, k3_ops = roofline.k3_work(cols.shape[0], total, starts.shape[0])
     k3_bound, k3_by = roofline.bound_ms(roofline.Work(k3_bytes, k3_ops))
     emit("k3_check", scene="376x1408, 2,233,571 Gaussians, first train step",
@@ -4521,7 +4711,7 @@ def main(argv=None) -> int:
     k3_contract = {"ms": k3c_ms, "plain_ms": k3["plain_ms"],
                    "bound_ms": k3_bound, "bound_by": k3_by,
                    "library_ms": k3c_lib_ms, "max_abs_err": k3["max_abs_err"]}
-    del k2_args, k3_args, k3c_args, cols, data, lengths, lib, step_st, gidx
+    del k2_args, k3_args, k3c_args, cols, k3c_lib, step_st, gidx
 
     # -- 9. one step's gradients: kernels against plain versions -------------
     grad = grad_check(dev)
@@ -4585,6 +4775,19 @@ def main(argv=None) -> int:
 
     # -- 17b. the main path's probes at bench shape --------------------------
     probes = probes_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 17c. the glue and gather-backward probes, the backward bisect, the
+    # sharded-path check -----------------------------------------------------
+    micro = micro_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 17d. the superseded r03 quality run in full --------------------------
+    legacy = legacy_quality_phase(dev, card)
+    if args.quality_out:
+        from vegs_torch.perf.quality import write_report
+
+        write_report(args.quality_out, "r03", legacy["r03"])
 
     # -- 18. summary ---------------------------------------------------------
     launches = {**train["launches"]}
@@ -4601,7 +4804,10 @@ def main(argv=None) -> int:
     # launches_tiles: the tiles phase's three Trainer steps and three
     # fwd+bwd (one a wide shape; its sweep is not counted); launches_probes:
     # the probes phase's stage split, bisect, binning probes, sat-cull
-    # analysis and debug trails
+    # analysis and debug trails; launches_micro: the micro phase's probes,
+    # backward bisect and sharded-path check (K3's JAX-contract entry in
+    # its jax_contract); launches_legacy_quality: r03's 1,000 steps and
+    # their evaluations
     perf_only = "the perf phase (micro3 probes); the main paths never launch it"
     print(json.dumps({"kernels": [
         {"name": "K1 blend_fwd", "route": "cuda",
@@ -4616,7 +4822,10 @@ def main(argv=None) -> int:
          "launches_quality": quality["launches"]["K1"],
          "launches_tp_quality": tpq["launches"]["K1"],
          "launches_tiles": tiles["launches"]["K1"],
-         "launches_probes": probes["launches"]["K1"], "matches_plain": True,
+         "launches_probes": probes["launches"]["K1"],
+         "launches_micro": micro["launches"]["K1"],
+         "launches_legacy_quality": legacy["launches"]["K1"],
+         "matches_plain": True,
          "max_abs_err": k1_full["max_abs_err"],
          "stop_flips": k1_full["stop_flips"],
          "ms": k1_ms, "plain_ms": k1_full["plain_ms"],
@@ -4635,7 +4844,10 @@ def main(argv=None) -> int:
          "launches_quality": quality["launches"]["K2"],
          "launches_tp_quality": tpq["launches"]["K2"],
          "launches_tiles": tiles["launches"]["K2"],
-         "launches_probes": probes["launches"]["K2"], "matches_plain": True,
+         "launches_probes": probes["launches"]["K2"],
+         "launches_micro": micro["launches"]["K2"],
+         "launches_legacy_quality": legacy["launches"]["K2"],
+         "matches_plain": True,
          "max_abs_err": k2["max_abs_err"],
          "reading": max(k2[rows]["reading"][scale]
                         for rows, scale in K2_SCALE.items()),
@@ -4670,7 +4882,10 @@ def main(argv=None) -> int:
          "launches_quality": quality["launches"]["K3"],
          "launches_tp_quality": tpq["launches"]["K3"],
          "launches_tiles": tiles["launches"]["K3"],
-         "launches_probes": probes["launches"]["K3"], "matches_plain": True,
+         "launches_probes": probes["launches"]["K3"],
+         "launches_micro": micro["launches"]["K3"],
+         "launches_legacy_quality": legacy["launches"]["K3"],
+         "matches_plain": True,
          "entry": "gather_expand_bwd (the gather's whole backward)",
          "max_abs_err": k3f["max_abs_err"],
          "reading": max(k3f[r]["reading"] for r in ("f32_rows", "aux_rows")),
@@ -4680,7 +4895,15 @@ def main(argv=None) -> int:
                     "(accumulating index_put_ on the row-major tables)",
          "index_add_ms": k3_index_add_ms,
          "device_ms_columns_path": k3_ways["columns"]["device_ms"],
-         "jax_contract": k3_contract},
+         "jax_contract": {
+             **k3_contract, "launches_micro": micro["launches"][
+                 "K3 JAX contract"],
+             "bench_shape": {k: micro["k3_contract"][k] for k in (
+                 "ms", "stream_ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by", "max_abs_err", "reading", "control_reading",
+                 "segments", "columns")}},
+         "r05_fused": {r: micro["k3_fused"][r]["reading"]
+                       for r in ("f32_rows", "aux_rows")}},
         {"name": "K4 satcount", "route": "cuda",
          "source": "vegs_torch/csrc/satcount.cu",
          "replaces": "vegs_tpu/ops/satcull.py:65",
@@ -4693,7 +4916,10 @@ def main(argv=None) -> int:
          "launches_quality": quality["launches"]["K4"],
          "launches_tp_quality": tpq["launches"]["K4"],
          "launches_tiles": tiles["launches"]["K4"],
-         "launches_probes": probes["launches"]["K4"], "matches_plain": True,
+         "launches_probes": probes["launches"]["K4"],
+         "launches_micro": micro["launches"]["K4"],
+         "launches_legacy_quality": legacy["launches"]["K4"],
+         "matches_plain": True,
          "max_abs_err": k4_full["max_abs_err"],
          "ms": k4_ms, "plain_ms": k4_full["plain_ms"],
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
@@ -4710,6 +4936,8 @@ def main(argv=None) -> int:
          "launches_tp_quality": tpq["launches"]["M1"],
          "launches_tiles": tiles["launches"]["M1"],
          "launches_probes": probes["launches"]["M1"],
+         "launches_micro": micro["launches"]["M1"],
+         "launches_legacy_quality": legacy["launches"]["M1"],
          "matches_plain": True, "max_abs_err": m1["max_abs_err"],
          "case": f"{m1['dtype']} {m1['layout']}",
          "ms": m1["ms"], "plain_ms": m1["plain_ms"],
@@ -4725,6 +4953,8 @@ def main(argv=None) -> int:
          "launches_tp_quality": tpq["launches"]["M2"],
          "launches_tiles": tiles["launches"]["M2"],
          "launches_probes": probes["launches"]["M2"],
+         "launches_micro": micro["launches"]["M2"],
+         "launches_legacy_quality": legacy["launches"]["M2"],
          "matches_plain": True, "max_abs_err": m2["max_abs_err"],
          "case": m2["dtype"],
          "ms": m2["ms"], "plain_ms": m2["plain_ms"],

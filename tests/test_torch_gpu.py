@@ -454,6 +454,36 @@ def test_segreduce_kernel_matches_plain(cuda):
     assert torch.equal(got.cpu(), segreduce.segment_reduce_ref(cols, starts, ends))
 
 
+def test_segreduce_jax_contract_at_bench_spans_matches_plain(cuda):
+    """K3 under the JAX contract at perf/r05_segreduce2.py's full shape
+    (`vegs_torch.perf.gebwd`: [24, 1,126,912] columns, 500,224 segments
+    from random sorted ends, the last 223 empty) against its plain version
+    on the CPU: within 1e-5 of each segment's sum of |x|, equal to the bit
+    on segments of at most 32 columns (both add in column order), the
+    empty segments 0; the control -- each segment's last column left out
+    -- outside the limit."""
+    from vegs_torch.perf import gebwd
+
+    d = gebwd.r05s2_data(cuda)
+    cols, starts, ends = d["cols"], d["starts"], d["ends"]
+    n0 = segreduce.segment_reduce_cols.launches
+    got = segreduce.segment_reduce_cols(cols, starts, ends).cpu()
+    assert segreduce.segment_reduce_cols.launches == n0 + 1
+    c, s, e = cols.cpu(), starts.cpu(), ends.cpu()
+    ref = segreduce.segment_reduce_ref(c, s, e)
+    mag = segreduce.segment_reduce_ref(c.abs(), s, e).clamp(min=1e-30)
+    short = segreduce.segment_reduce_ref(c, s, torch.maximum(e - 1, s))
+    reading = float(((got - ref).abs() / mag).max())
+    control = float(((short - ref).abs() / mag).max())
+    print(f"K3 JAX contract at r05's spans: reading {reading}, control "
+          f"{control}")
+    assert reading <= K3_RTOL < control
+    span = (e - s).long()
+    assert torch.equal(got[:, span <= 32], ref[:, span <= 32])
+    assert int((span[gebwd.N5:] == 0).sum()) == gebwd.ng_of(gebwd.N5) - gebwd.N5
+    assert not got[:, gebwd.N5:].any()
+
+
 @pytest.mark.parametrize("aux", ["f32", "bf16"])
 def test_train_step_grads_kernels_match_plain(cuda, aux):
     """One training step's gradients (every field leaf and the means2d tap)

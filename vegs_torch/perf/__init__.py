@@ -16,13 +16,23 @@ scripts that reach a Pallas kernel):
   single-device step at D spawned ranks (perf/quality_tp*.py), held
   against QUALITY_TP_r02-r05 in QUALITY_TORCH_TP.md;
 - `tiles`: the tile-shape sweep at 500k Gaussians (perf/r05_tiles.py);
-- `stages`: the stage split and bisect at 500k (perf/stages_r02.py);
+- `stages`: the stage split and bisect at 500k (perf/stages_r02.py) and
+  the backward bisect (perf/r03_bwd_bisect.py);
 - `binning_probes`: the binning and row-gather A/Bs (perf/r06_binning.py,
   r08_binning2.py, r11_recscan.py);
 - `satcull_analysis`: what a tile-saturation cull could prune at 2.23M,
   beside K4's and K1's prune (perf/r09_satcull_analysis.py);
 - `quality_debug`: the arm-A debug trails at 64x128 and 128x256
-  (perf/r12_quality_debug.py, r12b_grads.py).
+  (perf/r12_quality_debug.py, r12b_grads.py);
+- `micro`: the glue micro-probes at K = 2^21 (perf/micro_r02.py,
+  micro2_r02.py, r03_micro.py, r03_micro2.py);
+- `gebwd`: the gather backward's pieces, with K3 as the main path runs it
+  and under the JAX contract (perf/r04_gebwd.py, r05_gebwd2.py,
+  r05_segreduce.py, r05_segreduce2.py);
+- `shard_check`: the tile-sharded render and the fully sharded trainer's
+  step at D = 1 (perf/r07_shard_pallas.py);
+- `quality` also holds the superseded r03, r04 and box_r04 quality runs
+  (perf/quality_full.py, quality_full_r04.py, quality_box.py).
 
 Each runs on the card, and fails without one, unless given device="cpu".
 """

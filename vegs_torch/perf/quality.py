@@ -31,8 +31,45 @@ Every run trains through the port's Trainer, so on the card each step
 launches K1-K3 (and K4 while the sat-cull gate is on); each run records
 its launches, ms per step and k_cap's path.
 
-Run on the card:  python -m vegs_torch.perf.quality --run static|full|box|seeds
-                  [--out PATH]
+Three superseded runs reuse that scene, recipe and evaluation; their
+readings go into the same report:
+
+- `run_r03` (quality_full.py:179-247): 64x128, 17 cameras, 1,000
+  iterations, the mover with 0.08 m of annotation noise, normal-prior
+  init, VGG perceptual term 0.01, the tiny SD stack with random weights
+  (generator seed 0) guiding in the window [750, 1000]
+  (score-matching, max_step 50), k_cap 2^14; every 100 iterations the
+  held-out PSNR and SSIM with the box composited, the active Gaussians and
+  the box's mean translation error.
+- `run_r04` (quality_full_r04.py:207-325): 128x256, 17 cameras, the tiny
+  UNet pretrained on the training images' crops (1,500 steps), a trunk
+  to 0.6 x the iterations, then two branches from one snapshot to the
+  end, guided (sm_lambda 3e-7) and unguided, each evaluated every 200
+  iterations on the held-out views and on the test views yawed by +-18
+  degrees. The script's default is 2,000 iterations (a trunk to 1,200);
+  the run QUALITY_FULL_r04.md records ran 1,400 (a trunk to 840, densify
+  until 840) and so does this one, so its readings stand beside the
+  recorded ones iteration for iteration.
+- `run_box_r04` (quality_box.py:40-123): 128x256, 9 cameras, one eye,
+  0.125 m of noise, 1,200 iterations, no guidance or perceptual term, a
+  sweep of boxmodel_lambda_reg over [1e-3, 1e-4]; every 100 iterations the
+  mean translation error and the held-out PSNR (`run_box`).
+
+The JAX readings (QUALITY_FULL_r03.md, QUALITY_FULL_r04.md,
+QUALITY_BOX_r04.md) predate fixes the port carries: r03's the box-delta
+`safe_norm` fix (34c0164; quality_box.py:6-8: its deltas never left
+identity, so its error column is frozen at 0.123 m) and the SSIM gradient
+fix (b15ede2: float32 filters and clamped variances); r04's and
+box_r04's the SSIM gradient fix, whose absence held the JAX runs at
+128x256 near 7 dB. They are reported beside the port's, not held within a
+band. r03's final held-out PSNR is held twice: one-sided, at or above
+JAX's less `PSNR_BAND_DB`, and two-sided, within `PSNR_BAND_DB` of the
+port's own first card reading (`PORT_R03_FINAL`), so that a fault costing
+more than the band shows although the port is far above JAX; its
+untrained reading at iteration 0 is the control that must miss both.
+
+Run on the card:  python -m vegs_torch.perf.quality
+                  --run static|full|box|seeds|r03|r04|box_r04 [--out PATH]
 The CLI writes only its report, QUALITY_TORCH.md at the repository's root
 (or --out): each run's record is kept in the file (a JSON block at its
 end), so runs made in separate calls collect in one report. It exits 1
@@ -554,9 +591,11 @@ class Run:
         if ssim:
             row["ssim"] = e["ssim"]
         if self.aug_cams is not None:
-            row["aug_psnr"] = tr.evaluate(cameras=self.aug_cams,
-                                          with_boxes=boxes,
-                                          with_ssim=ssim)["psnr"]
+            a = tr.evaluate(cameras=self.aug_cams, with_boxes=boxes,
+                            with_ssim=ssim)
+            row["aug_psnr"] = a["psnr"]
+            if ssim:
+                row["aug_ssim"] = a["ssim"]
         self.trend.append(row)
         self.log(f"[{self.label}] " + json.dumps(row)
                  + f" ({time.perf_counter() - self.t0:.1f} s)")
@@ -703,17 +742,18 @@ def run_seeds(seeds=SEEDS, *, h=H, w=W, n_cams=N_CAMS, iters=ITERS,
 
 
 def run_box(*, h=H, w=W, frames=BOX_FRAMES, iters=BOX_ITERS,
-            every=BOX_EVERY, lambda_reg=BOX_LAMBDA_REG, device=None,
-            log=print) -> dict:
+            every=BOX_EVERY, lambda_reg=BOX_LAMBDA_REG,
+            baseline=BOX_BASELINE, device=None, log=print) -> dict:
     """Stereo box-pose recovery (quality_box_r05.py:44): the mover scene at
-    `frames` frames x 2 eyes, numpy seed SCENE_SEED, the recipe of
+    `frames` frames x 2 eyes (one eye when `baseline` is 0, as
+    quality_box.py ran it), numpy seed SCENE_SEED, the recipe of
     quality_full.py's Trainer (normal init, k_cap 2^14) without guidance
     or the perceptual term; every `every` iterations the mean translation
     error and the held-out PSNR with the boxes."""
     dev = resolve_device(device)
     info, true_b2w, _ = build_scene_info(
         np.random.default_rng(SCENE_SEED), h=h, w=w, n_cams=frames,
-        noise_t=BOX_NOISE, stereo_baseline=BOX_BASELINE)
+        noise_t=BOX_NOISE, stereo_baseline=baseline)
     tr = build_trainer(info, box_config(lambda_reg), k_cap=BOX_K_CAP,
                        norminit=True, device=dev)
     run = Run("box", tr, log=log)
@@ -725,8 +765,9 @@ def run_box(*, h=H, w=W, frames=BOX_FRAMES, iters=BOX_ITERS,
             errs.append((it, box_pose_errors(tr, true_b2w)[0]))
             run.evaluate(it, ssim=it == iters)
     final = errs[-1][1]
-    return {"setting": {"hw": [h, w], "frames": frames, "eyes": 2,
-                        "baseline": BOX_BASELINE, "noise_t": BOX_NOISE,
+    return {"setting": {"hw": [h, w], "frames": frames,
+                        "eyes": 2 if baseline else 1, "baseline": baseline,
+                        "noise_t": BOX_NOISE,
                         "lambda_reg": lambda_reg, "iters": iters,
                         **_card(dev)},
             **run.record(), "err_raw": raw, "err_trend": errs,
@@ -757,6 +798,366 @@ def run_static(*, hw=STATIC_HW, n_cams=N_CAMS, iters=STATIC_ITERS,
     run.train(1, iters, every, boxes=False, ssim=False)
     return {"setting": {"hw": list(hw), "cams": n_cams, "iters": iters,
                         **_card(dev)}, **run.record()}
+
+
+# -- the superseded runs: quality_full.py (r03), quality_full_r04.py (r04),
+# quality_box.py (box_r04) ----------------------------------------------------
+
+# -- r03: quality_full.py's settings ------------------------------------------
+R03_HW, R03_CAMS, R03_ITERS, R03_EVERY = (64, 128), 17, 1000, 100
+R03_K_CAP = 1 << 14
+R03_GUIDE_FRAC = 0.75        # the window [0.75 x ITERS, ITERS]
+
+# -- r04: quality_full_r04.py's (at the recorded run's 1,400 iterations) ------
+R04_HW, R04_CAMS, R04_ITERS, R04_EVERY = (128, 256), 17, 1400, 200
+R04_K_CAP = 1 << 15
+R04_PRETRAIN = 1500
+R04_SM_LAMBDA = 3e-7
+R04_TRUNK_FRAC = 0.6         # the trunk, and densify, to 0.6 x ITERS
+
+# -- box_r04: quality_box.py's ------------------------------------------------
+BOXR04_HW, BOXR04_CAMS, BOXR04_ITERS, BOXR04_EVERY = (128, 256), 9, 1200, 100
+BOXR04_SWEEP = (1e-3, 1e-4)
+
+# -- the JAX package's recorded readings --------------------------------------
+# QUALITY_FULL_r03.md: iteration -> (PSNR, SSIM, active Gaussians, box err)
+JAX_R03 = {0: (5.41, 0.064, 11424, 0.125),
+           100: (6.13, 0.332, 11424, 0.123),
+           200: (6.52, 0.381, 13429, 0.123),
+           300: (7.17, 0.441, 15838, 0.123),
+           400: (8.00, 0.487, 19129, 0.123),
+           500: (9.09, 0.534, 22657, 0.123),
+           600: (10.11, 0.562, 27074, 0.123),
+           700: (10.85, 0.618, 32818, 0.123),
+           800: (11.59, 0.661, 32818, 0.123),
+           900: (11.80, 0.686, 32818, 0.123),
+           1000: (11.92, 0.710, 32818, 0.123)}
+JAX_R03_RAW_ERR, JAX_R03_GUIDED = 0.125, 249
+# The port's own final held-out PSNR of r03, its first reading on the card
+# (`--run r03` on an H100 80GB HBM3 at 700 W, QUALITY_TORCH.md); chip_smoke
+# read 28.21 dB in the same run-up.
+PORT_R03_FINAL = 28.2004
+# QUALITY_FULL_r04.md: trunk iteration -> (test PSNR, SSIM, aug PSNR,
+# SSIM, active); branch iteration -> ((guided test, aug), (unguided ...))
+JAX_R04_TRUNK = {0: (5.25, 0.090, 5.04, 0.081, 11424),
+                 200: (5.90, 0.434, 5.77, 0.352, 13254),
+                 400: (6.17, 0.491, 6.06, 0.428, 15538),
+                 600: (6.58, 0.511, 6.47, 0.509, 21076),
+                 800: (7.05, 0.570, 6.88, 0.508, 24758),
+                 840: (7.04, 0.572, 6.90, 0.498, 24758)}
+JAX_R04_BRANCH = {
+    1000: ((6.98, 0.572, 6.87, 0.504), (6.99, 0.573, 6.86, 0.501)),
+    1200: ((6.97, 0.571, 6.87, 0.501), (6.95, 0.571, 6.84, 0.499)),
+    1400: ((6.94, 0.577, 6.86, 0.479), (6.94, 0.574, 6.82, 0.494))}
+JAX_R04_PRETRAIN, JAX_R04_GUIDED = (1.403, 0.210), 559
+# QUALITY_BOX_r04.md: lambda_reg -> (raw err, final err, recovered)
+JAX_BOX_R04 = {1e-3: (0.1548, 0.1088, 0.30), 1e-4: (0.1548, 0.1981, -0.28)}
+JAX_BOX_R04_TREND = {
+    1e-3: (0.1548, 0.1654, 0.1603, 0.1606, 0.1450, 0.1328, 0.1226, 0.1179,
+           0.1141, 0.1134, 0.1093, 0.1110, 0.1088),
+    1e-4: (0.1548, 0.1876, 0.2092, 0.2278, 0.2049, 0.1890, 0.1855, 0.1917,
+           0.1974, 0.1925, 0.1902, 0.1958, 0.1981)}
+
+PREDATES = {
+    "r03": "the box-delta safe_norm fix (34c0164; quality_box.py:6-8: the "
+           "deltas never left identity, hence the frozen 0.123 m column) "
+           "and the SSIM gradient fix (b15ede2)",
+    "r04": "the SSIM gradient fix (b15ede2: float32 SSIM filters and "
+           "clamped variances; without it the DSSIM gradient at 128x256 was "
+           "~100x corrupted and the JAX run plateaued near 7 dB)",
+    "box_r04": "the SSIM gradient fix (b15ede2); it postdates the safe_norm "
+               "fix, which let its deltas move at all",
+}
+
+
+def r03_config():
+    """quality_full.py:103-123's overrides: the static recipe (densify
+    [100, 700] every 100 at tau 0.0004), the VGG perceptual term at 0.01,
+    the guidance window [750, 1000] at sm_lambda 1e-7, 32-pixel SD
+    crops. `box_config` is the same without the perceptual term."""
+    cfg = box_config()
+    cfg.sd.perceptual_loss = True
+    return cfg
+
+
+def r04_config(iters: int = R04_ITERS):
+    """quality_full_r04.py:160-177's overrides: densify [100, 0.6 x iters]
+    every 150 at tau 0.0004, the perceptual term at 0.01, the guidance
+    window closed (the guided branch opens it)."""
+    from ..config import VegsConfig
+
+    cfg = VegsConfig()
+    cfg.opt.densify_from_iter = 100
+    cfg.opt.densification_interval = 150
+    cfg.opt.densify_until_iter = int(iters * R04_TRUNK_FRAC)
+    cfg.opt.opacity_reset_interval = 10_000
+    cfg.opt.densify_grad_threshold = 0.0004
+    cfg.sd.perceptual_loss = True
+    cfg.sd.perceptual_loss_lambda = 0.01
+    cfg.sd.sd_image_size = SD_IMAGE_SIZE
+    cfg.sd.start_guiding_from_iter = 10 ** 9
+    cfg.sd.end_guiding_at_iter = 10 ** 9
+    return cfg
+
+
+def tiny_sd(dev, seed: int = 0):
+    """The tiny SD stack at 32-pixel crops, random weights from a
+    generator seeded `seed` on `dev` (quality_full.py:135)."""
+    from ..diffusion.pipeline import DiffusionModels
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return DiffusionModels.tiny(g, image_size=SD_IMAGE_SIZE)
+
+
+def r03_trainer(info, iters: int = R03_ITERS, device=None):
+    """quality_full.py:98's Trainer: `r03_config`, k_cap 2^14, Trainer
+    seed 3, the normal-prior init, score-matching guidance by the tiny SD
+    stack with random weights (max_step 50) in [0.75 x iters, iters]."""
+    from ..losses.sd_guidance import SDGuidance
+
+    dev = resolve_device(device)
+    cfg = r03_config()
+    guide_from = int(iters * R03_GUIDE_FRAC)
+    cfg.sd.start_guiding_from_iter, cfg.sd.end_guiding_at_iter = (guide_from,
+                                                                  iters)
+    tr = build_trainer(info, cfg, k_cap=R03_K_CAP, norminit=True,
+                         device=dev)
+    tr.sd_guidance = SDGuidance(tiny_sd(dev), guidance_mode="score-matching",
+                                start_iter=guide_from, max_iters=iters,
+                                max_step=50)
+    return tr
+
+
+def run_r03(*, hw=R03_HW, n_cams=R03_CAMS, iters=R03_ITERS, every=R03_EVERY,
+            device=None, log=print) -> dict:
+    """quality_full.py:179-216: `r03_trainer` on the mover scene of numpy
+    seed 7, evaluated (held-out PSNR, SSIM, active Gaussians with the box
+    composited; the box's mean translation error) at 0, every `every` and
+    at the end."""
+    dev = resolve_device(device)
+    h, w = hw
+    info, true_b2w, _ = build_scene_info(
+        np.random.default_rng(SCENE_SEED), h=h, w=w, n_cams=n_cams)
+    tr = r03_trainer(info, iters, dev)
+    run = Run("r03", tr, log=log)
+    err0, raw = box_pose_errors(tr, true_b2w)
+    run.evaluate(0)
+    errs = [(0, err0)]
+    for it in range(1, iters + 1):
+        run.step(it)
+        if it % every == 0 or it == iters:
+            run.evaluate(it)
+            errs.append((it, box_pose_errors(tr, true_b2w)[0]))
+    return {"setting": {"hw": [h, w], "cams": n_cams, "iters": iters,
+                        "guide": [int(iters * R03_GUIDE_FRAC), iters],
+                        **_card(dev)},
+            **run.record(), "err_raw": raw, "err_trend": errs}
+
+
+def run_r04(*, hw=R04_HW, n_cams=R04_CAMS, iters=R04_ITERS, every=R04_EVERY,
+            pretrain_steps=R04_PRETRAIN, device=None, log=print) -> dict:
+    """quality_full_r04.py:207-301: the tiny UNet pretrained on the
+    training images (the VAE's random weights kept), the trunk to 0.6 x
+    `iters` unguided, a snapshot, the guided branch (sm_lambda 3e-7, the
+    window [0.6 x iters, iters]) and the unguided branch from it, each
+    evaluated on the held-out and the yawed views every `every`, at the
+    fork and at the end."""
+    from ..losses.sd_guidance import SDGuidance
+
+    dev = resolve_device(device)
+    h, w = hw
+    guide_from = int(iters * R04_TRUNK_FRAC)
+    info, _, _ = build_scene_info(np.random.default_rng(SCENE_SEED),
+                                    h=h, w=w, n_cams=n_cams)
+    train_imgs = np.stack([np.asarray(c.image) for c in info.train_cameras])
+    t0 = time.perf_counter()
+    models, unet_losses = pretrain_unet(tiny_sd(dev), train_imgs,
+                                          steps=pretrain_steps)
+    _sync(dev)
+    pre_s = time.perf_counter() - t0
+    log(f"[r04] pretrain: unet {unet_losses[0]:.4f} -> {unet_losses[-1]:.4f}"
+        f" ({pre_s:.1f} s)")
+    tr = build_trainer(info, r04_config(iters), k_cap=R04_K_CAP,
+                         norminit=True, device=dev)
+    aug = make_aug_cameras(tr.scene.getTestCameras(), n_cams)
+    trunk = Run("r04-trunk", tr, aug_cams=aug, log=log)
+    trunk.evaluate(0)
+    trunk.train(1, guide_from, every)
+    snap = snapshot_trainer(tr)
+
+    tr.sd_guidance = SDGuidance(models, guidance_mode="score-matching",
+                                start_iter=guide_from, max_iters=iters,
+                                max_step=50, sm_lambda=R04_SM_LAMBDA)
+    tr.cfg.sd.start_guiding_from_iter = guide_from
+    tr.cfg.sd.end_guiding_at_iter = iters
+    tr.cfg.sd.sm_lambda = R04_SM_LAMBDA
+    guided = Run("r04-guided", tr, aug_cams=aug, log=log)
+    guided.train(guide_from + 1, iters, every)
+
+    restore_trainer(tr, snap)
+    tr.sd_guidance = None
+    tr.cfg.sd.start_guiding_from_iter = 10 ** 9
+    tr.cfg.sd.end_guiding_at_iter = 10 ** 9
+    unguided = Run("r04-unguided", tr, aug_cams=aug, log=log)
+    unguided.train(guide_from + 1, iters, every)
+    return {"setting": {"hw": [h, w], "cams": n_cams, "iters": iters,
+                        "trunk_to": guide_from, **_card(dev)},
+            "trunk": trunk.record(), "guided": guided.record(),
+            "unguided": unguided.record(),
+            "pretrain": {"unet": unet_losses, "steps": pretrain_steps,
+                         "seconds": pre_s}}
+
+
+def run_box_r04(*, hw=BOXR04_HW, n_cams=BOXR04_CAMS, iters=BOXR04_ITERS,
+                every=BOXR04_EVERY, sweep=BOXR04_SWEEP, device=None,
+                log=print) -> dict:
+    """quality_box.py:40-100: `run_box` with one eye at each
+    lambda_reg of `sweep`."""
+    h, w = hw
+    return {"setting": {"hw": [h, w], "cams": n_cams, "iters": iters,
+                        "noise_t": BOX_NOISE, **_card(resolve_device(
+                            device))},
+            "runs": {f"{lam:g}": run_box(h=h, w=w, frames=n_cams,
+                                           iters=iters, every=every,
+                                           lambda_reg=lam, baseline=0.0,
+                                           device=device, log=log)
+                     for lam in sweep}}
+
+
+# -- holding and reporting ----------------------------------------------------
+
+
+def held_legacy(records: dict, band: float) -> list:
+    """`held`'s rows for r03: the final held-out PSNR at or above JAX's
+    less `band` and within `band` of the port's own card reading, and the
+    untrained reading at iteration 0 missing both (the control)."""
+    r03 = records.get("r03")
+    if not r03:
+        return []
+    jax_final = JAX_R03[R03_ITERS][0]
+    last, first = r03["trend"][-1], r03["trend"][0]
+
+    def holds(psnr):
+        return (psnr >= jax_final - band, within(psnr, PORT_R03_FINAL, band))
+
+    return [(f"r03 it{last['it']} PSNR, one-sided: at or above JAX's less "
+             "the band", last["psnr"], jax_final, band,
+             holds(last["psnr"])[0]),
+            (f"r03 it{last['it']} PSNR against the port's own card reading",
+             last["psnr"], PORT_R03_FINAL, band, holds(last["psnr"])[1]),
+            (f"r03 it{first['it']} PSNR (untrained control), must miss both",
+             first["psnr"], jax_final, band, not any(holds(first["psnr"])))]
+
+
+def _pair(p, s):
+    return f"{p:.2f}/{s:.3f}"
+
+
+def render_legacy(records: dict) -> list:
+    """The report's sections of the r03, r04 and box_r04 runs, each beside
+    the JAX readings and the fixes those predate."""
+    L = []
+    r03 = records.get("r03")
+    if r03:
+        s = r03["setting"]
+        L += ["## r03: the full model (QUALITY_FULL_r03, superseded)",
+              "", f"{s['hw'][0]}x{s['hw'][1]}, {s['cams']} cameras, "
+              f"{s['iters']} iterations, the mover with 0.08 m noise, normal "
+              f"init, perceptual 0.01, tiny SD (random weights) guiding in "
+              f"{s['guide']}; {_card_of(r03)}. The JAX reading predates "
+              f"{PREDATES['r03']}.", "",
+              "| iteration | port PSNR / SSIM | JAX PSNR / SSIM | port "
+              "Gaussians | JAX Gaussians | port box err (m) | JAX box err "
+              "(m) |",
+              "|---|---|---|---|---|---|---|"]
+        errs = dict(r03["err_trend"])
+        for r in r03["trend"]:
+            j = JAX_R03.get(r["it"])
+            jq, jn, je = ((_pair(j[0], j[1]), j[2], f"{j[3]:.3f}") if j
+                          else ("", "", ""))
+            L += [f"| {r['it']} | {_pair(r['psnr'], r['ssim'])} | {jq} | "
+                  f"{r['n']} | {jn} | {errs.get(r['it'], float('nan')):.3f} "
+                  f"| {je} |"]
+        L += ["", f"Raw annotation error: port {r03['err_raw']:.3f} m, JAX "
+              f"{JAX_R03_RAW_ERR} m. Guided iterations: port "
+              f"{r03['guided_iters']}, JAX {JAX_R03_GUIDED}.", "",
+              f"Timing: {_timing(r03)}", ""]
+    r04 = records.get("r04")
+    if r04:
+        s = r04["setting"]
+        pre = r04["pretrain"]
+        L += ["## r04: the guidance ablation (QUALITY_FULL_r04, superseded)",
+              "",
+              f"{s['hw'][0]}x{s['hw'][1]}, {s['cams']} cameras, {s['iters']} "
+              f"iterations, the trunk to {s['trunk_to']}, then guided (sm "
+              f"3e-7) and unguided branches from one snapshot; "
+              f"{_card_of(r04)}. The tiny UNet pretrained {pre['steps']} "
+              f"steps: eps-MSE {pre['unet'][0]:.3f} -> {pre['unet'][-1]:.3f} "
+              f"(JAX {JAX_R04_PRETRAIN[0]} -> {JAX_R04_PRETRAIN[1]}), "
+              f"{pre['seconds']:.1f} s. The JAX reading predates "
+              f"{PREDATES['r04']}.", "",
+              "Trunk (test PSNR/SSIM, extrapolated PSNR/SSIM, active):", "",
+              "| iteration | port test | JAX test | port aug | JAX aug | port "
+              "active | JAX active |", "|---|---|---|---|---|---|---|"]
+        for r in r04["trunk"]["trend"]:
+            j = JAX_R04_TRUNK.get(r["it"])
+            L += [f"| {r['it']} | {_pair(r['psnr'], r['ssim'])} | "
+                  f"{_pair(j[0], j[1]) if j else ''} | "
+                  f"{_pair(r['aug_psnr'], r['aug_ssim'])} | "
+                  f"{_pair(j[2], j[3]) if j else ''} | {r['n']} | "
+                  f"{j[4] if j else ''} |"]
+        L += ["", "Branches (test / extrapolated PSNR/SSIM):", "",
+              "| iteration | port guided | JAX guided | port unguided | JAX "
+              "unguided |", "|---|---|---|---|---|"]
+        for g, u in zip(r04["guided"]["trend"], r04["unguided"]["trend"]):
+            j = JAX_R04_BRANCH.get(g["it"])
+
+            def cell(r):
+                return (f"{_pair(r['psnr'], r['ssim'])} / "
+                        f"{_pair(r['aug_psnr'], r['aug_ssim'])}")
+
+            def jcell(x):
+                return f"{_pair(x[0], x[1])} / {_pair(x[2], x[3])}"
+            L += [f"| {g['it']} | {cell(g)} | {jcell(j[0]) if j else ''} | "
+                  f"{cell(u)} | {jcell(j[1]) if j else ''} |"]
+        g, u = r04["guided"]["trend"][-1], r04["unguided"]["trend"][-1]
+        L += ["", f"Guidance effect (guided - unguided) at it{g['it']}: "
+              f"extrapolated {g['aug_psnr'] - u['aug_psnr']:+.2f} dB, "
+              f"held-out "
+              f"{g['psnr'] - u['psnr']:+.2f} dB (JAX +0.04 / +0.01). Guided "
+              f"iterations: port {r04['guided']['guided_iters']}, JAX "
+              f"{JAX_R04_GUIDED}.", ""]
+        for part in ("trunk", "guided", "unguided"):
+            L += [f"- {part}: {_timing(r04[part])}"]
+        L += [""]
+    box = records.get("box_r04")
+    if box:
+        s = box["setting"]
+        L += ["## box_r04: pose recovery (QUALITY_BOX_r04, superseded)", "",
+              f"{s['hw'][0]}x{s['hw'][1]}, {s['cams']} cameras (one eye), "
+              f"{s['noise_t']} m injected noise, {s['iters']} iterations, no "
+              f"guidance or perceptual term; {_card_of(box)}. The JAX "
+              f"reading predates {PREDATES['box_r04']}.", "",
+              "| lambda_reg | port raw / final err (m) | port recovered | JAX "
+              "raw / final err (m) | JAX recovered | port test PSNR |",
+              "|---|---|---|---|---|---|"]
+        for lam, r in box["runs"].items():
+            j = JAX_BOX_R04.get(float(lam))
+            L += [f"| {lam} | {r['err_raw']:.4f} / {r['err_final']:.4f} | "
+                  f"{100 * r['recovered']:.0f}% | "
+                  f"{f'{j[0]} / {j[1]}' if j else ''} | "
+                  f"{f'{100 * j[2]:.0f}%' if j else ''} | "
+                  f"{r['trend'][-1]['psnr']:.2f} |"]
+        L += ["", "Error trend (m), port then JAX:", ""]
+        for lam, r in box["runs"].items():
+            jt = JAX_BOX_R04_TREND.get(float(lam), ())
+            L += [f"- lambda_reg {lam}: " + ", ".join(
+                f"it{i}={e:.4f}" for i, e in r["err_trend"]),
+                "  JAX: " + ", ".join(
+                    f"it{100 * i}={e:.4f}" for i, e in enumerate(jt)),
+                f"  {_timing(r)}"]
+        L += [""]
+    return L
 
 
 # -- holding the readings ----------------------------------------------------------------
@@ -807,7 +1208,7 @@ def held(records: dict) -> list:
         rows.append((f"control (the JAX round-5 SSIM) it{c['it']} PSNR, "
                      "must miss", c["psnr"], JAX_A_IT900, band,
                      not within(c["psnr"], JAX_A_IT900, band)))
-    return rows
+    return rows + held_legacy(records, band)
 
 
 # -- the report -----------------------------------------------------------------------------
@@ -848,13 +1249,15 @@ def render_report(records: dict) -> str:
     L = ["# QUALITY_TORCH — the port's end-to-end quality on the card",
          "",
          "Written by `python -m vegs_torch.perf.quality --run "
-         "static|full|box|seeds` (and chip_smoke.py's quality phase with",
-         "`--quality-out`): the JAX package's quality harness ported to",
-         "`vegs_torch.perf.quality`, trained on the card through K1-K4 on the",
-         "ray-traced street oracle, each reading beside the JAX package's",
-         "recorded one (QUALITY_FULL_r05.md, QUALITY_BOX_r05.md,",
-         "QUALITY_r02.md). Times are the card's named beside them; the JAX",
-         "readings are quality numbers only.", ""]
+         "static|full|box|seeds|r03|r04|box_r04` (and chip_smoke.py's",
+         "quality phase with `--quality-out`): the JAX package's quality",
+         "harness ported to `vegs_torch.perf.quality`,",
+         "trained on the card through K1-K4 on the ray-traced street oracle,",
+         "each reading beside the JAX package's recorded one",
+         "(QUALITY_FULL_r05.md, QUALITY_BOX_r05.md, QUALITY_r02.md, and the",
+         "superseded QUALITY_FULL_r03.md, QUALITY_FULL_r04.md,",
+         "QUALITY_BOX_r04.md). Times are the card's named beside them; the",
+         "JAX readings are quality numbers only.", ""]
     seeds = records.get("seeds")
     L += ["## The band", ""]
     if seeds:
@@ -983,6 +1386,7 @@ def render_report(records: dict) -> str:
               "Evaluation SSIM under a control is computed with the patched "
               "SSIM; its PSNR is not.", "",
               f"Phase {smoke['phase_s']:.1f} s.", ""]
+    L += render_legacy(records)
     L += ["<!-- quality-records", json.dumps(records), "-->", ""]
     return "\n".join(L)
 
@@ -999,7 +1403,8 @@ def write_report(path, run: str, record: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run", required=True,
-                    choices=("static", "full", "box", "seeds"))
+                    choices=("static", "full", "box", "seeds", "r03", "r04",
+                             "box_r04"))
     ap.add_argument("--out", default=str(REPORT))
     args = ap.parse_args(argv)
     dev = resolve_device(None)
@@ -1010,7 +1415,8 @@ def main(argv=None) -> int:
         print(msg, flush=True)
 
     rec = {"static": run_static, "full": run_full, "box": run_box,
-           "seeds": run_seeds}[args.run](device=dev, log=log)
+           "seeds": run_seeds, "r03": run_r03, "r04": run_r04,
+           "box_r04": run_box_r04}[args.run](device=dev, log=log)
     records = write_report(args.out, args.run, rec)
     rows = held(records)
     for r in rows:

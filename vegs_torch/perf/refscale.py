@@ -81,14 +81,16 @@ def origin_camera(h, w, fovx, fovy, device):
         np.tan(fovy * 0.5), h, w, device=device)
 
 
-def build_scene(n: int = N_REF, h: int = H, w: int = W, device=None):
+def build_scene(n: int = N_REF, h: int = H, w: int = W, device=None,
+                rng=None):
     """r09's scene (r09:63-75, bench.py:75-86): the tests/utils.py draws
-    from seed 0, then the means re-drawn to fill the 376x1408 frustum
-    (fovx 1.2, fovy 0.4). Returns (camera, [means, quats, scales, opacities,
-    shs])."""
+    from seed 0 (or from `rng`, which a caller may go on drawing from, as
+    r07_shard_pallas.py:145 does), then the means re-drawn to fill the
+    376x1408 frustum (fovx 1.2, fovy 0.4). Returns (camera, [means, quats,
+    scales, opacities, shs])."""
     dev = resolve_device(device)
     cam = origin_camera(h, w, 1.2, 0.4, dev)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED) if rng is None else rng
     means, quats, scales, opac, shs = random_gaussians(
         rng, n, depth_range=(2.0, 60.0), xy_extent=40.0,
         scale_range=(0.002, 0.025))

@@ -22,14 +22,22 @@ projection, the binning (as the JAX bisect does: without the ellipse cull),
 the gather, the blend -- with a loss planted on that stage's outputs, both
 forward only and forward and backward.
 
+`bwd_bisect` (perf/r03_bwd_bisect.py) takes the same scene at k_cap 2^21
+and bins without the ellipse cull (r03_bwd_bisect.py:83): forward and
+backward of all five leaves with the loss planted after the projection,
+the payload, the gather and the blend (r03_bwd_bisect.py:65-103); of the
+means alone (:105-111); and the full forward with the blend detached and
+cotangents planted on the gathered payload (:116-144). It launches K1, K2
+and K3.
+
 Each line has the stream time ("ms", CUDA events) and the card's own time
-("device_ms", torch.profiler) of `timing.measure`, and each stage's bound
-from `roofline` (bytes once at 3.35 TB/s, fp32 operations at 67 TFLOP/s;
-the blend's operations counted by its plain version's pairs, a few
-seconds) and its share of the device time; a share above 1 means a count
+("device_ms", torch.profiler) of `timing.measure`; each `run` stage has
+its bound from `roofline` (bytes once at 3.35 TB/s, fp32 operations at
+67 TFLOP/s; the blend's operations counted by its plain version's pairs,
+a few seconds) and its share of the device time; a share above 1 means a count
 is wrong, and the run fails.
 
-Run on the card:  python -m vegs_torch.perf.stages [bisect]
+Run on the card:  python -m vegs_torch.perf.stages [bisect | bwd_bisect]
 """
 
 from __future__ import annotations
@@ -38,11 +46,13 @@ import json
 import sys
 
 import torch
+import torch.nn.functional as F
 
 from .. import geometry, resolve_device
 from ..ops import binning, blend_cuda
 from ..ops.projection import project
-from ..ops.rasterize import GatherExpand, RasterizeConfig, rasterize
+from ..ops.rasterize import (GatherExpand, RasterizeConfig, build_payload,
+                             rasterize)
 from . import roofline
 from .refscale import _payload, build_scene
 from .roofline import Work
@@ -257,9 +267,119 @@ def bisect(device=None, n: int = N, h: int = H, w: int = W,
     return lines
 
 
+BWD_K_CAP = 1 << 21   # r03_bwd_bisect.py:28
+BWD_UPTO = ("project", "payload", "gather", "blend")
+
+
+def bwd_pipeline(cam, grid, k_cap: int, xs, upto: str):
+    """r03_bwd_bisect.py:66-103: the step's forward to `upto` with its loss
+    planted there: the sum of the projection's outputs, of the payload
+    tables (the aux table summed in bf16, as JAX's jnp.sum of a bf16
+    array), of the gathered payload, or the blend's mean(rgb^2) + 0.01
+    mean(depth^2) over the padded image. The binning runs without the
+    ellipse cull."""
+    m, q, s, o, sh = xs
+    p = project(m, geometry.cov6_from_scaling_rotation(s, q), o, sh, cam)
+    if upto == "project":
+        return (p.means2d.sum() + p.rgb.sum() + p.conics.sum()
+                + p.depths.sum() + p.opacities.sum())
+    quat_n = geometry.quat_standardize(geometry.quat_normalize(q))
+    pay_f32, pay_aux = build_payload(p, quat_n, s, torch.bfloat16)
+    if upto == "payload":
+        return pay_f32.sum() + pay_aux.sum().float()
+    pf, pa, b = _bwd_gathered(pay_f32, pay_aux, p, grid, k_cap)
+    if upto == "gather":
+        return pf.sum() + pa.sum().float()
+    out = blend_cuda.BlendFn.apply(pf, pa, b.tile_starts, grid,
+                                   grid.padded_height, grid.padded_width)
+    return out[0:3].square().mean() + 0.01 * out[3:4].square().mean()
+
+
+def _bwd_gathered(pay_f32, pay_aux, p, grid, k_cap):
+    b = binning.bin_gaussians(p.means2d.detach(), p.depths.detach(),
+                              p.radii_xy, grid, k_cap, want_grad_maps=True)
+    pf, pa = GatherExpand.apply(F.pad(pay_f32, (0, 0, 0, 1)),
+                                F.pad(pay_aux, (0, 0, 0, 1)), b.gidx,
+                                b.order, _ends(b))
+    return pf, pa, b
+
+
+def skip_blend_bwd_loss(cam, grid, k_cap: int, xs):
+    """r03_bwd_bisect.py:116-140: the full forward with the blend fed the
+    gathered payload detached (its forward kept, its backward skipped) and
+    the payload's cotangents planted by 1e-9 of its sums."""
+    m, q, s, o, sh = xs
+    p = project(m, geometry.cov6_from_scaling_rotation(s, q), o, sh, cam)
+    quat_n = geometry.quat_standardize(geometry.quat_normalize(q))
+    pay_f32, pay_aux = build_payload(p, quat_n, s, torch.bfloat16)
+    pf, pa, b = _bwd_gathered(pay_f32, pay_aux, p, grid, k_cap)
+    out = blend_cuda.BlendFn.apply(pf.detach(), pa.detach(), b.tile_starts,
+                                   grid, grid.padded_height,
+                                   grid.padded_width)
+    return (out[0:3].square().mean() + pf.sum() * 1e-9
+            + pa.sum().float() * 1e-9)
+
+
+def bwd_lines(cam, grid, k_cap: int, arrays) -> dict:
+    """{line name: fn() -> (loss, gradients)} of `bwd_bisect`; the
+    gradients of the leaves the line differentiates."""
+    leaves = [x.clone().requires_grad_(True) for x in arrays]
+
+    def fb(loss_of, wrt):
+        def fn():
+            loss = loss_of(leaves)
+            return loss, torch.autograd.grad(loss, [leaves[i] for i in wrt])
+        return fn
+
+    every = range(5)
+    lines = {f"fwd+bwd(all params) upto {u}": fb(
+        lambda xs, u=u: bwd_pipeline(cam, grid, k_cap, xs, u), every)
+        for u in BWD_UPTO}
+    lines["fwd+bwd(means only) upto blend"] = fb(
+        lambda xs: bwd_pipeline(cam, grid, k_cap, xs, "blend"), (0,))
+    lines["fwd(full)+bwd skipping blend-bwd"] = fb(
+        lambda xs: skip_blend_bwd_loss(cam, grid, k_cap, xs), every)
+    return lines
+
+
+def bwd_bisect(device=None, n: int = N, h: int = H, w: int = W,
+               k_cap: int = BWD_K_CAP, iters: int = 20, warmup: int = 3,
+               emit=None) -> dict:
+    """r03_bwd_bisect.py's lines (`bwd_lines`) on the 500k scene, each
+    with its loss, whether every gradient is finite, and the binning's
+    kept and dropped instances. Returns {name: line}."""
+    dev = resolve_device(device)
+    emit = emit or (lambda **kw: print(json.dumps(kw), flush=True))
+    card = device_line(dev)
+    cam, arrays = build_scene(n, h, w, dev)
+    grid = binning.TileGrid.for_image(h, w)
+    with torch.no_grad():
+        m, q, s, o, sh = arrays
+        p = project(m, geometry.cov6_from_scaling_rotation(s, q), o, sh, cam)
+        b = binning.bin_gaussians(p.means2d, p.depths, p.radii_xy, grid,
+                                  k_cap)
+        counts = {"n": n, "k_cap": k_cap, "kept": int(b.num_instances),
+                  "dropped": int(b.num_dropped)}
+    emit(probe="bwd_bisect", counts=counts, card=card)
+    lines = {}
+    for name, fn in bwd_lines(cam, grid, k_cap, arrays).items():
+        loss, grads = fn()
+        line = {"probe": "bwd_bisect", "stage": name,
+                "loss": float(loss.detach()),
+                "finite": bool(torch.isfinite(loss)) and all(
+                    bool(torch.isfinite(g).all()) for g in grads),
+                **measure(fn, dev, iters, warmup)}
+        line.pop("top", None)
+        emit(**line, card=card)
+        lines[name] = line
+    return {"lines": lines, "counts": counts, "card": card}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if "bisect" in argv:
+    if "bwd_bisect" in argv:
+        bwd_bisect()
+    elif "bisect" in argv:
         bisect()
     else:
         run()
