@@ -643,9 +643,9 @@ def profile_frames(fn, by_scope: bool = False) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, groups, by_name = [], {}, {}
     for e in prof.events():
-        # (the GUIDE_SCOPES ranges also show on the device's timeline)
+        # (the program's vegs:: spans also show on the device's timeline)
         if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.name in GUIDE_SCOPES):
+                or e.name.startswith("vegs::")):
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -688,7 +688,7 @@ def scope_split(prof, time_us=None) -> dict:
     if time_us is None:
         def time_us(e):
             return sum(k.duration for k in e.kernels
-                       if k.name not in GUIDE_SCOPES)
+                       if not k.name.startswith("vegs::"))
     cpu = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CPU]
 

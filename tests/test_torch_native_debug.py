@@ -1,7 +1,7 @@
 """The port's host-side helpers against vegs_tpu's: the native library
 (`vegs_torch.native`), the numerical audits (`vegs_torch.utils.debug`),
-the StyleGAN2 image ops (`vegs_torch.ops.image_ops`) and the step timer
-and trace (`vegs_torch.utils.logging`).
+the StyleGAN2 image ops (`vegs_torch.ops.image_ops`) and the operator's
+trace (`vegs_torch.utils.trace.trace_steps`).
 
   * native: the port builds `native/vegs_native.cpp` with g++ into
     build/vegs_torch/<hash>/ (not the committed .so, which the JAX package
@@ -16,12 +16,10 @@ and trace (`vegs_torch.utils.logging`).
   * image_ops: `upfirdn2d` (up and down 1-2, with the blur pads) and
     `fused_leaky_relu` within 1e-6 of JAX's (float32 convolutions summed
     in another order), `make_fir_kernel` equal.
-  * logging: `StepTimer`'s EMA equal to JAX's on the same durations (a
-    fake clock), and `trace_steps` writes a TensorBoard trace.
+  * trace: `trace_steps` writes a TensorBoard trace.
 """
 
 import os
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,10 +28,10 @@ import torch
 
 from vegs_torch import native as tnative
 from vegs_torch.ops import image_ops as tops
-from vegs_torch.utils import debug as tdebug, logging as tlog
+from vegs_torch.utils import debug as tdebug, trace as ttrace
 from vegs_tpu import native as jnative
 from vegs_tpu.ops import image_ops as jops
-from vegs_tpu.utils import debug as jdebug, logging as jlog
+from vegs_tpu.utils import debug as jdebug
 
 
 # -- native ------------------------------------------------------------------
@@ -159,28 +157,11 @@ def test_fused_leaky_relu_matches_jax():
                                rtol=1e-6)
 
 
-# -- logging -------------------------------------------------------------------
-
-
-def test_step_timer_ema_matches_jax(monkeypatch):
-    durations = {"render": [0.5, 0.1, 0.3, 0.2], "loss": [0.05, 0.07]}
-    out = []
-    for cls in (tlog.StepTimer, jlog.StepTimer):
-        clock = [0.0]
-        monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
-        timer = cls(ema=0.8)
-        for name, ds in durations.items():
-            for d in ds:
-                with timer(name):
-                    clock[0] += d
-        out.append(timer.summary())
-    assert out[0] == out[1]
-    assert out[0]["render"] == pytest.approx(
-        0.8 * (0.8 * (0.8 * 0.5 + 0.2 * 0.1) + 0.2 * 0.3) + 0.2 * 0.2)
+# -- trace ---------------------------------------------------------------------
 
 
 def test_trace_steps_writes_a_trace(tmp_path):
-    with tlog.trace_steps(str(tmp_path / "trace")):
+    with ttrace.trace_steps(str(tmp_path / "trace")):
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     files = [f for _, _, fs in os.walk(tmp_path / "trace") for f in fs]
     assert any(f.endswith(".pt.trace.json") for f in files), files

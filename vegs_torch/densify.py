@@ -25,6 +25,7 @@ import torch
 from . import geometry
 from .gaussians import DensifyStats, GaussianField, round_capacity
 from .optim import PARAM_LEAVES
+from .utils import trace
 
 
 def stats_contribution(means2d_grad: torch.Tensor, radii: torch.Tensor,
@@ -33,8 +34,9 @@ def stats_contribution(means2d_grad: torch.Tensor, radii: torch.Tensor,
     pixel-space means2d tap scaled to NDC (W/2, H/2), its norm where the
     Gaussian is visible, the visibility count and the radius."""
     vis = radii > 0
-    scale = torch.tensor([image_width * 0.5, image_height * 0.5],
-                         dtype=means2d_grad.dtype, device=means2d_grad.device)
+    with trace.span("densify.copy", sync=True):  # from pageable memory
+        scale = torch.tensor([image_width * 0.5, image_height * 0.5],
+                             dtype=means2d_grad.dtype, device=means2d_grad.device)
     norm = torch.linalg.norm(means2d_grad * scale, dim=-1)
     zero = torch.zeros((), dtype=torch.float32, device=norm.device)
     return (torch.where(vis, norm, zero), vis.to(torch.float32),
@@ -93,11 +95,14 @@ def _recompact(field: GaussianField, opt: dict, masks, out_capacity: int,
         return torch.cumsum(m.to(torch.int64), dim=0) - 1
 
     keep_pos = cum(keep)
-    n_keep = int(keep.sum())
+    with trace.span("densify.count", sync=True):
+        n_keep = int(keep.sum())
     clone_pos = n_keep + cum(clone)
-    n_clone = int(clone.sum())
+    with trace.span("densify.count", sync=True):
+        n_clone = int(clone.sum())
     split_base = n_keep + n_clone + n_split_children * cum(split)
-    n_split = int(split.sum())
+    with trace.span("densify.count", sync=True):
+        n_split = int(split.sum())
 
     scales = field.scales()
     if noise is None:
@@ -110,7 +115,8 @@ def _recompact(field: GaussianField, opt: dict, masks, out_capacity: int,
     child_log_scales = field.log_scales - math.log(split_scale_div)
 
     def place(dst, src, pos, mask):
-        dst[pos[mask]] = src[mask]
+        with trace.span("densify.mask", sync=True):  # boolean masks' indexes
+            dst[pos[mask]] = src[mask]
 
     out = {}
     for name in PARAM_LEAVES:
@@ -157,7 +163,8 @@ def densify_and_prune(field: GaussianField, opt: dict, stats: DensifyStats,
                           min_opacity, max_screen_size)
     clone, split, prune = masks
     keep = field.valid & ~prune & ~split
-    n_out = int(keep.sum()) + int(clone.sum()) + 2 * int(split.sum())
+    with trace.span("densify.count", sync=True):
+        n_out = int(keep.sum()) + int(clone.sum()) + 2 * int(split.sum())
     out_capacity = round_capacity(int(n_out * capacity_headroom) + 1)
     return _recompact(field, opt, masks, out_capacity, generator, noise)
 
@@ -170,7 +177,8 @@ def prune_only(field: GaussianField, opt: dict, stats: DensifyStats, *,
                         device=field.means.device)
     _, _, prune = densify_masks(field, stats, math.inf, 1.0, max(extent, 1e-9),
                                 min_opacity, max_screen_size)
-    keep_n = int((field.valid & ~prune).sum())
+    with trace.span("densify.count", sync=True):
+        keep_n = int((field.valid & ~prune).sum())
     return _recompact(field, opt, (false, false, prune),
                       round_capacity(keep_n + 1),
                       noise=torch.zeros((2, field.capacity, 3)))

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from . import geometry, resolve_device, sh as sh_lib
+from .utils import trace
 
 
 class GaussianField(nn.Module):
@@ -84,7 +85,9 @@ class DensifyStats:
 def sh_band_mask(active_degree: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """[16] mask: 1 for coefficients within the active SH degree else 0."""
     degrees = np.repeat(np.arange(4), np.arange(4) * 2 + 1)  # 0,1,1,1,2,...
-    return torch.as_tensor(degrees <= active_degree, device=device).to(dtype)
+    with trace.span("sh_mask.copy", sync=True):  # from pageable memory
+        mask = torch.as_tensor(degrees <= active_degree, device=device)
+    return mask.to(dtype)
 
 
 def inverse_sigmoid(x):

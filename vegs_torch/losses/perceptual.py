@@ -13,6 +13,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from . import vgg
 
 
@@ -34,7 +35,7 @@ def vgg_perceptual_loss(model: vgg.VGG16Features, pred_chw: torch.Tensor,
                         feature_layers: Sequence[int] = (0, 1, 2, 3),
                         style_layers: Sequence[int] = ()) -> torch.Tensor:
     """[3, H, W] renders in [0, 1]; no gradient flows into the target."""
-    with torch.profiler.record_function("vegs::vgg_perceptual"):
+    with trace.span("vgg_perceptual"):
         f_pred = vgg.extract_features(model, _resize224(pred_chw))
         f_tgt = vgg.extract_features(model, _resize224(target_chw).detach())
         loss = pred_chw.new_zeros(())

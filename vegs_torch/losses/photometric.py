@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
+
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor,
             mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -78,7 +80,9 @@ class _DepthwiseFilter(torch.autograd.Function):
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          sigma: float = 1.5) -> torch.Tensor:
     """Mean SSIM over [C, H, W] images in [0, 1]."""
-    window = torch.from_numpy(_gaussian_window(window_size, sigma)).to(img1.device)
+    with trace.span("ssim.copy", sync=True):  # from pageable memory
+        window = torch.from_numpy(_gaussian_window(window_size, sigma)).to(
+            img1.device)
 
     def filt(x):
         return _DepthwiseFilter.apply(x, window)

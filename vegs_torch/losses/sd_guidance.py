@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..diffusion.pipeline import DiffusionModels, cfg_noise_pred, encode_image
+from ..utils import trace
 
 
 @dataclass
@@ -84,12 +85,12 @@ class SDGuidance:
         if draws is None:
             draws = self.draw(self.latent_shape(pred_rgb_chw), iteration,
                               generator)
-        with torch.profiler.record_function("vegs::vae_encode"):
+        with trace.span("vae_encode"):
             latents = encode_image(self.models, pred_rgb_chw, draws["eps"])
         sched = self.models.schedule
         t, noise = draws["t"], draws["noise"]
         # the UNet's prediction is a constant
-        with torch.no_grad(), torch.profiler.record_function("vegs::unet_cfg"):
+        with torch.no_grad(), trace.span("unet_cfg"):
             eps_hat = cfg_noise_pred(
                 self.models, sched.add_noise(latents.detach(), noise, t), t,
                 self.guidance_scale, self.reference_cfg_orientation)

@@ -29,6 +29,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
+
 TILE_SHIFT = 19
 MAX_TILES = 4094
 MIN_TILE_SHIFT = 10
@@ -268,12 +270,14 @@ def bin_raw(
     # Slot -> Gaussian index: add each nonempty Gaussian's index delta (to
     # the previous nonempty one) at its run start, then integrate with one
     # cumsum.
-    nonempty = torch.nonzero(counts > 0).squeeze(1)  # ascending
+    with trace.span("bin.nonzero", sync=True):
+        nonempty = torch.nonzero(counts > 0).squeeze(1)  # ascending
     start_val = torch.diff(nonempty, prepend=nonempty.new_zeros(1)).to(I32)
     start_idx = cum_excl[nonempty].long()
     inb = start_idx < k_cap
     z = torch.zeros((k_cap,), dtype=I32, device=dev)
-    z.index_add_(0, start_idx[inb], start_val[inb])
+    with trace.span("bin.mask", sync=True):  # a boolean mask's index syncs
+        z.index_add_(0, start_idx[inb], start_val[inb])
     gidx_raw = _cumsum_i32(z)
     slot = torch.arange(k_cap, dtype=I32, device=dev)
 
@@ -427,7 +431,8 @@ def pad_relayout(
     def tile_broadcast(values):  # [T] -> [k_cap] piecewise-constant
         deltas = torch.cat([values[:1], values[1:] - values[:-1]])
         z = torch.zeros((k_cap,), dtype=values.dtype, device=dev)
-        z.index_add_(0, bounds[inb], deltas[inb])
+        with trace.span("bin.mask", sync=True):
+            z.index_add_(0, bounds[inb], deltas[inb])
         return _cumsum_i32(z)
 
     base_map = tile_broadcast(padded_starts[:-1])
@@ -536,7 +541,8 @@ def _grad_maps(rb: RawBinned, padded_starts, grid: TileGrid, k_cap: int,
     def bcast(values):  # [T] per tile -> [k_cap] per sorted position
         deltas = torch.cat([values[:1], values[1:] - values[:-1]])
         z = torch.zeros((k_cap,), dtype=I32, device=dev)
-        z.index_add_(0, bounds[inb], deltas[inb])
+        with trace.span("bin.mask", sync=True):
+            z.index_add_(0, bounds[inb], deltas[inb])
         return _cumsum_i32(z)
 
     dest = slot + bcast(padded_starts[:-1] - rb.raw_starts[:-1])
@@ -562,8 +568,10 @@ def _grad_maps(rb: RawBinned, padded_starts, grid: TileGrid, k_cap: int,
     kr = min(k_pad, k_cap)
     row = _cumsum_i32(landed_raw.to(I32)) - 1
     order = torch.full((kr,), k_pad, dtype=I32, device=dev)
-    order[row[landed_raw].long()] = dest_raw[landed_raw]
+    with trace.span("bin.mask", sync=True):
+        order[row[landed_raw].long()] = dest_raw[landed_raw]
     per_g = torch.zeros((n,), dtype=I32, device=dev)
-    per_g.index_add_(0, rb.gidx_raw[landed_raw].long(),
-                     torch.ones_like(row[landed_raw]))
+    with trace.span("bin.mask", sync=True):
+        per_g.index_add_(0, rb.gidx_raw[landed_raw].long(),
+                         torch.ones_like(row[landed_raw]))
     return order, _cumsum_i32(per_g)

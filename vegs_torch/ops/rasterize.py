@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import geometry
+from ..utils import trace
 from . import binning, blend_ref
 from .blend_cuda import check_tile_shape
 from .segreduce import gather_expand_bwd
@@ -182,33 +183,34 @@ def stage(
     H, W = cam.height, cam.width
     grid = binning.TileGrid.for_image(H, W, config.tile_h, config.tile_w)
 
-    if cov6_precomp is not None:
-        cov6 = cov6_precomp
-    else:
-        cov6 = geometry.cov6_from_scaling_rotation(scales, quats, scale_modifier)
+    with trace.span("raster.project"):
+        if cov6_precomp is not None:
+            cov6 = cov6_precomp
+        else:
+            cov6 = geometry.cov6_from_scaling_rotation(scales, quats, scale_modifier)
 
-    if colors_precomp is not None:
-        # Bypass the SH path: encode the color as a DC-only SH.
-        from .. import sh as sh_lib
+        if colors_precomp is not None:
+            # Bypass the SH path: encode the color as a DC-only SH.
+            from .. import sh as sh_lib
 
-        shs_eff = (colors_precomp - 0.5)[:, None, :] / sh_lib.C0
-        deg_eff = 0
-    else:
-        if shs is None:
-            raise ValueError("need shs or colors_precomp")
-        shs_eff = shs
-        deg_eff = sh_degree
+            shs_eff = (colors_precomp - 0.5)[:, None, :] / sh_lib.C0
+            deg_eff = 0
+        else:
+            if shs is None:
+                raise ValueError("need shs or colors_precomp")
+            shs_eff = shs
+            deg_eff = sh_degree
 
-    proj = project(
-        means3d, cov6, opacities, shs_eff, cam,
-        sh_degree=deg_eff, valid=valid, means2d_offset=means2d_offset,
-        clamp_radius=config.clamp_radius,
-    )
+        proj = project(
+            means3d, cov6, opacities, shs_eff, cam,
+            sh_degree=deg_eff, valid=valid, means2d_offset=means2d_offset,
+            clamp_radius=config.clamp_radius,
+        )
 
-    quat_n = geometry.quat_standardize(geometry.quat_normalize(quats))
-    scale_eff = scales * scale_modifier
-    aux_dtype = torch.bfloat16 if config.payload_dtype == "bf16" else torch.float32
-    pay_f32, pay_aux = build_payload(proj, quat_n, scale_eff, aux_dtype)
+        quat_n = geometry.quat_standardize(geometry.quat_normalize(quats))
+        scale_eff = scales * scale_modifier
+        aux_dtype = torch.bfloat16 if config.payload_dtype == "bf16" else torch.float32
+        pay_f32, pay_aux = build_payload(proj, quat_n, scale_eff, aux_dtype)
 
     sat_auto = config.k_cap >= SAT_MIN_SLOTS_PER_TILE * grid.num_tiles
     sat_on = (backend == "cuda"
@@ -219,11 +221,13 @@ def stage(
     op = proj.opacities.detach()
     compact = (None if config.cull_compact == "auto"
                else bool(config.cull_compact))
-    rb = binning.bin_raw(m2d, dep, proj.radii_xy, grid, config.k_cap,
-                         conics=con, opacities=op, compact=compact)
-    # Dummy zero-opacity row at index n absorbs the padding slots.
-    pay_f32 = F.pad(pay_f32, (0, 0, 0, 1))
-    pay_aux = F.pad(pay_aux, (0, 0, 0, 1))
+    with trace.span("raster.bin"):
+        rb = binning.bin_raw(m2d, dep, proj.radii_xy, grid, config.k_cap,
+                             conics=con, opacities=op, compact=compact)
+    with trace.span("raster.project"):
+        # Dummy zero-opacity row at index n absorbs the padding slots.
+        pay_f32 = F.pad(pay_f32, (0, 0, 0, 1))
+        pay_aux = F.pad(pay_aux, (0, 0, 0, 1))
     pay_rows = pay_f32.detach()
     sat_counts = None
     if sat_on:
@@ -233,23 +237,26 @@ def stage(
         # of tail slots past num_real may point anywhere in [0, n], and the
         # kernel masks slots outside each tile's range. (The JAX package
         # gathers pay_f32[gidx_sorted].T first, for its TPU kernel's DMAs.)
-        sat_counts = satcull.satcount_gathered(pay_rows, rb.gidx_sorted,
-                                               rb.raw_starts, grid)
-    binned = binning.bin_gaussians(
-        m2d, dep, proj.radii_xy, grid, config.k_cap,
-        conics=con, opacities=op,
-        want_keys=(backend == "dense"), want_grad_maps=not config.forward_only,
-        k_pad=config.k_pad, compact=compact, rb=rb, sat_counts=sat_counts)
+        with trace.span("raster.satcount"):
+            sat_counts = satcull.satcount_gathered(pay_rows, rb.gidx_sorted,
+                                                   rb.raw_starts, grid)
+    with trace.span("raster.bin"):
+        binned = binning.bin_gaussians(
+            m2d, dep, proj.radii_xy, grid, config.k_cap,
+            conics=con, opacities=op,
+            want_keys=(backend == "dense"), want_grad_maps=not config.forward_only,
+            k_pad=config.k_pad, compact=compact, rb=rb, sat_counts=sat_counts)
 
-    if config.forward_only:
-        gidx = binned.gidx.long()
-        payload_f32 = pay_f32[gidx].T.contiguous()
-        payload_aux = pay_aux[gidx].T.contiguous()
-    else:
-        # the dummy row n gets an empty segment
-        ends = torch.cat([binned.gauss_ends, binned.gauss_ends[-1:]])
-        payload_f32, payload_aux = GatherExpand.apply(
-            pay_f32, pay_aux, binned.gidx, binned.order, ends)
+    with trace.span("raster.gather"):
+        if config.forward_only:
+            gidx = binned.gidx.long()
+            payload_f32 = pay_f32[gidx].T.contiguous()
+            payload_aux = pay_aux[gidx].T.contiguous()
+        else:
+            # the dummy row n gets an empty segment
+            ends = torch.cat([binned.gauss_ends, binned.gauss_ends[-1:]])
+            payload_f32, payload_aux = GatherExpand.apply(
+                pay_f32, pay_aux, binned.gidx, binned.order, ends)
     return Staged(proj=proj, grid=grid, backend=backend, rb=rb,
                   pay_rows=pay_rows, sat_counts=sat_counts, binned=binned,
                   payload_f32=payload_f32, payload_aux=payload_aux)
@@ -278,19 +285,20 @@ def rasterize(
                valid=valid, means2d_offset=means2d_offset, config=config)
     H, W = cam.height, cam.width
     grid, binned = st.grid, st.binned
-    if st.backend == "dense":
-        out = blend_ref.blend_dense(
-            assemble_dense_payload(st.payload_f32.T, st.payload_aux.T),
-            binned.sort_keys, binned.tile_starts, grid, H, W)
-    else:
-        from . import blend_cuda
+    with trace.span("raster.blend"):
+        if st.backend == "dense":
+            out = blend_ref.blend_dense(
+                assemble_dense_payload(st.payload_f32.T, st.payload_aux.T),
+                binned.sort_keys, binned.tile_starts, grid, H, W)
+        else:
+            from . import blend_cuda
 
-        out_p = blend_cuda.BlendFn.apply(st.payload_f32, st.payload_aux,
-                                         binned.tile_starts, grid,
-                                         grid.padded_height,
-                                         grid.padded_width)
-        out = out_p[:, :H, :W]
-    return raster_out(st, out, bg)
+            out_p = blend_cuda.BlendFn.apply(st.payload_f32, st.payload_aux,
+                                             binned.tile_starts, grid,
+                                             grid.padded_height,
+                                             grid.padded_width)
+            out = out_p[:, :H, :W]
+        return raster_out(st, out, bg)
 
 
 def raster_out(st: Staged, out: torch.Tensor,

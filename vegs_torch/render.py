@@ -26,6 +26,7 @@ from . import boxmodel, geometry, sh as sh_lib
 from .gaussians import GaussianField, sh_band_mask
 from .ops.projection import CameraParams
 from .ops.rasterize import RasterOut, RasterizeConfig, rasterize
+from .utils import trace
 
 
 class FieldArrays(NamedTuple):
@@ -84,7 +85,8 @@ def render(
     """Render the static field on the field's device. The pipe flags are
     the reference's: evaluate SH outside the rasterizer / precompute the
     3D covariance."""
-    arrays = field_arrays(field, active_sh_degree)
+    with trace.span("render.arrays"):
+        arrays = field_arrays(field, active_sh_degree)
     cam = _as_cam_params(camera, field.means.device)
     cov6_precomp = None
     if compute_cov3D_python:
@@ -160,7 +162,9 @@ def render_dyn(
 ):
     """The boxes only (default scale modifier 2.0). Returns (RasterOut,
     row boundaries [len(boxes) + 1] over the concatenated Gaussians)."""
-    arrays = _concat_arrays([_box_arrays(b, active_sh_degree) for b in boxes])
+    with trace.span("render.arrays"):
+        arrays = _concat_arrays([_box_arrays(b, active_sh_degree)
+                                 for b in boxes])
     out = _run(camera, arrays, bg=bg, scale_modifier=scale_modifier,
                override_color=None, sh_degree=sh_degree, config=config,
                means2d_offset=means2d_offset)
@@ -182,9 +186,11 @@ def render_all(
     """The static field and the boxes composited in one rasterizer call.
     Returns (RasterOut, row boundaries [len(boxes) + 2] over the
     concatenated Gaussians: [static | box_0 | box_1 | ...])."""
-    parts = [field_arrays(static_field, active_sh_degree)]
-    parts += [_box_arrays(b, active_sh_degree) for b in boxes]
-    out = _run(camera, _concat_arrays(parts), bg=bg,
+    with trace.span("render.arrays"):
+        parts = [field_arrays(static_field, active_sh_degree)]
+        parts += [_box_arrays(b, active_sh_degree) for b in boxes]
+        arrays = _concat_arrays(parts)
+    out = _run(camera, arrays, bg=bg,
                scale_modifier=scale_modifier, override_color=None,
                sh_degree=sh_degree, config=config,
                means2d_offset=means2d_offset)

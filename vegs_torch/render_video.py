@@ -32,6 +32,7 @@ from .ops.rasterize import RasterizeConfig
 from .render import BoxInstance, render, render_all
 from .scene import Scene, box_matrix
 from .scene.cameras import Camera, make_camera_like_input_camera
+from .utils import trace
 
 # Fixed extrapolation trajectories rendered for every frame
 # (zrot +-60, xrot -10 with rise).
@@ -113,16 +114,18 @@ def _render_view(scene: Scene, cam_aug: Camera, boxes: dict,
                  raster_cfg: RasterizeConfig, bg):
     """The scene's field and the boxes of `boxes` ({instance: box-to-world
     matrix or annotation}) that have a field, at their annotated poses."""
-    dev = scene.gaussians.means.device
-    instances = [
-        BoxInstance(field=scene.box_gaussians[i],
-                    box2world=_f32(box_matrix(m)).to(dev))
-        for i, m in boxes.items() if i in scene.box_gaussians]
-    if instances:
-        out, _ = render_all(cam_aug, scene.gaussians, instances, bg=bg,
-                            config=raster_cfg)
-        return out
-    return render(cam_aug, scene.gaussians, bg=bg, config=raster_cfg)
+    with trace.span("video.frame"):
+        dev = scene.gaussians.means.device
+        held = [(i, m) for i, m in boxes.items() if i in scene.box_gaussians]
+        if held:
+            with trace.span("boxes.copy", sync=True):
+                instances = [BoxInstance(field=scene.box_gaussians[i],
+                                         box2world=_f32(box_matrix(m)).to(dev))
+                             for i, m in held]
+            out, _ = render_all(cam_aug, scene.gaussians, instances, bg=bg,
+                                config=raster_cfg)
+            return out
+        return render(cam_aug, scene.gaussians, bg=bg, config=raster_cfg)
 
 
 def render_novelview_image(scene: Scene, cam: Camera, boxes: dict,
@@ -131,7 +134,9 @@ def render_novelview_image(scene: Scene, cam: Camera, boxes: dict,
     [0, 1]."""
     cam_aug = make_camera_like_input_camera(cam, **aug)
     out = _render_view(scene, cam_aug, boxes, raster_cfg, bg)
-    return torch.clamp(out.rgb.detach(), 0, 1).permute(1, 2, 0).cpu().numpy()
+    with trace.span("video.copyout", sync=True):
+        rgb = torch.clamp(out.rgb.detach(), 0, 1).permute(1, 2, 0).cpu()
+    return rgb.numpy()
 
 
 def render_novelview_rotaxis(scene: Scene, cam: Camera, boxes: dict,

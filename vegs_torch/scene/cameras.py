@@ -21,6 +21,7 @@ import torch
 
 from .. import geometry, resolve_device
 from ..ops.projection import CameraParams
+from ..utils import trace
 
 ZFAR = 100.0
 ZNEAR = 0.01
@@ -155,15 +156,16 @@ class Camera:
         def f32(x):
             return torch.tensor(np.asarray(x, np.float32), device=dev)
 
-        return CameraParams(
-            viewmatrix=f32(self.world_view_transform),
-            projmatrix=f32(self.full_proj_transform),
-            campos=f32(self.camera_center),
-            tan_fovx=f32(np.tan(self.FoVx * 0.5)),
-            tan_fovy=f32(np.tan(self.FoVy * 0.5)),
-            height=int(self.image_height),
-            width=int(self.image_width),
-        )
+        with trace.span("camera.copy", sync=True):  # five pageable copies
+            return CameraParams(
+                viewmatrix=f32(self.world_view_transform),
+                projmatrix=f32(self.full_proj_transform),
+                campos=f32(self.camera_center),
+                tan_fovx=f32(np.tan(self.FoVx * 0.5)),
+                tan_fovy=f32(np.tan(self.FoVy * 0.5)),
+                height=int(self.image_height),
+                width=int(self.image_width),
+            )
 
     def resized(self, image_size: int) -> "Camera":
         """The camera scaled so that its height is `image_size` (intrinsics

@@ -75,6 +75,7 @@ from .ops.rasterize import RasterizeConfig, RasterOut
 from .render import (BoxInstance, _bounds, _box_arrays, _concat_arrays, _run,
                      field_arrays, render_all)
 from .scene import Scene, box_matrix
+from .utils import trace
 
 CHECKPOINT_FILE = "checkpoint.pt"
 
@@ -108,18 +109,21 @@ def loss_fn(field: GaussianField, m2d_offset, cam: CameraParams, gt, normal,
     2] zeros, C the rows of all parts): `image_loss`, plus `lambda_reg` times
     the deltas' pull toward identity when there are boxes. Returns (loss,
     l1, normal_loss, RasterOut)."""
-    parts = [field_arrays(field, active_sh_degree)]
-    parts += [_box_arrays(b, active_sh_degree) for b in boxes]
-    out = _run(cam, _concat_arrays(parts), bg=bg, scale_modifier=1.0,
+    with trace.span("render.arrays"):
+        parts = [field_arrays(field, active_sh_degree)]
+        parts += [_box_arrays(b, active_sh_degree) for b in boxes]
+        arrays = _concat_arrays(parts)
+    out = _run(cam, arrays, bg=bg, scale_modifier=1.0,
                override_color=None, sh_degree=sh_total_degree,
                config=raster_cfg, means2d_offset=m2d_offset)
-    loss, ll1, nloss = image_loss(out, gt, normal, normal_valid, opt_cfg)
-    if boxes:
-        # safe norms: at the identity init the plain norm's gradient is NaN,
-        # and the NaN guard would then freeze the deltas (boxmodel.safe_norm)
-        reg = torch.stack([boxmodel.regularize_loss(b.deltas)
-                           for b in boxes]).sum()
-        loss = loss + lambda_reg * reg
+    with trace.span("train.loss"):
+        loss, ll1, nloss = image_loss(out, gt, normal, normal_valid, opt_cfg)
+        if boxes:
+            # safe norms: at the identity init the plain norm's gradient is NaN,
+            # and the NaN guard would then freeze the deltas (boxmodel.safe_norm)
+            reg = torch.stack([boxmodel.regularize_loss(b.deltas)
+                               for b in boxes]).sum()
+            loss = loss + lambda_reg * reg
     return loss, ll1, nloss, out
 
 
@@ -151,7 +155,7 @@ def guidance_loss(field: GaussianField, guided: GuidedView, iteration: int,
     without a means2d tap, its h x h crop from column `crop_start` (clamped
     into the frame, as `dynamic_slice` clamps), scored by the guidance at
     `iteration`."""
-    with torch.profiler.record_function("vegs::aug_render"):
+    with trace.span("aug_render"):
         aug = _run(guided.cam, field_arrays(field, active_sh_degree), bg=bg,
                    scale_modifier=1.0, override_color=None,
                    sh_degree=sh_total_degree, config=raster_cfg,
@@ -240,72 +244,74 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
                      aug_num_dropped=aug.num_dropped,
                      aug_num_needed=aug.num_needed,
                      aug_num_needed_raw=aug.num_needed_raw)
-    loss.backward()
+    with trace.span("train.backward"):
+        loss.backward()
 
-    g_static = optim.leaf_grads(field)
-    if g_extra is not None:
-        g_static = {k: g_static[k] + g_extra[k] for k in g_static}
-    metrics = {"loss": loss.detach(), "l1": ll1.detach(),
-               "normal_loss": nloss.detach()}
-    caps = {"num_dropped": out.num_dropped, "num_needed": out.num_needed,
-            "num_needed_raw": out.num_needed_raw}
-    if comm is not None:
-        from .parallel.comm import pmax_tree, psum_tree
-
-        n = comm.size
-        g_static = {k: v / n for k, v in psum_tree(g_static, comm).items()}
-        metrics = {k: v / n for k, v in psum_tree(metrics, comm).items()}
-        caps = pmax_tree(caps, comm)
-    optim.adam_step(field, g_static, state.opt,
-                    optim.field_lrs(opt_cfg, spatial_scale, state.step))
-    g_m2d = (m2d_offset.grad if m2d_offset.grad is not None
-             else torch.zeros_like(m2d_offset))
-    # one view's contributions for every part at once (they are row-wise),
-    # then each part's rows
-    norm, vis, rad = densify.stats_contribution(g_m2d, out.radii, cam.height,
-                                                cam.width)
-
-    def part(i):
-        a, b = bounds[i], bounds[i + 1]
-        return norm[a:b], vis[a:b], rad[a:b]
-
-    # every part's contributions, zero for a box this rank does not render
-    contribs = [part(0)]
-    live_i = iter(range(1, len(live) + 1))
-    for b in boxes:
-        if b.active:
-            contribs.append(part(next(live_i)))
-        else:
-            z = torch.zeros(b.field.capacity, dtype=torch.float32,
-                            device=field.means.device)
-            contribs.append((z, z, z))
-    if comm is not None:
-        contribs = _reduce_contribs(contribs, comm)
-    stats = densify.apply_stats(state.stats, *contribs[0])
-    new_boxes = []
-    if boxes:
-        # box fields live in the unit canonical box: spatial scale 1, the
-        # means' rate times box_lr_mult, the static step counter
-        box_lrs = optim.field_lrs(opt_cfg, 1.0, state.step,
-                                  xyz_lr_mult=opt_cfg.box_lr_mult)
-        g_boxes = [optim.leaf_grads(b.field) for b in boxes]
+    with trace.span("train.update"):
+        g_static = optim.leaf_grads(field)
+        if g_extra is not None:
+            g_static = {k: g_static[k] + g_extra[k] for k in g_static}
+        metrics = {"loss": loss.detach(), "l1": ll1.detach(),
+                   "normal_loss": nloss.detach()}
+        caps = {"num_dropped": out.num_dropped, "num_needed": out.num_needed,
+                "num_needed_raw": out.num_needed_raw}
         if comm is not None:
-            g_boxes = _box_grad_means(g_boxes, boxes, comm)
-        live_deltas = iter(deltas)
-        for b, g, c in zip(boxes, g_boxes, contribs[1:]):
-            optim.adam_step(b.field, g, b.opt, box_lrs)
-            new = dataclasses.replace(b, stats=densify.apply_stats(b.stats,
-                                                                   *c))
-            if b.active:  # this rank's frame's residual, stepped here only
-                d = next(live_deltas)
-                g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # the NaN guard
-                       for k, v in d.as_dict().items()}
-                nd, nopt = optim.tensor_adam_step(
-                    {k: v.detach() for k, v in d.as_dict().items()}, g_d,
-                    b.delta_opt, box_cfg.boxmodel_lr)
-                new = dataclasses.replace(new, deltas=BoxDeltas(**nd),
-                                          delta_opt=nopt)
-            new_boxes.append(new)
+            from .parallel.comm import pmax_tree, psum_tree
+
+            n = comm.size
+            g_static = {k: v / n for k, v in psum_tree(g_static, comm).items()}
+            metrics = {k: v / n for k, v in psum_tree(metrics, comm).items()}
+            caps = pmax_tree(caps, comm)
+        optim.adam_step(field, g_static, state.opt,
+                        optim.field_lrs(opt_cfg, spatial_scale, state.step))
+        g_m2d = (m2d_offset.grad if m2d_offset.grad is not None
+                 else torch.zeros_like(m2d_offset))
+        # one view's contributions for every part at once (they are row-wise),
+        # then each part's rows
+        norm, vis, rad = densify.stats_contribution(g_m2d, out.radii, cam.height,
+                                                    cam.width)
+
+        def part(i):
+            a, b = bounds[i], bounds[i + 1]
+            return norm[a:b], vis[a:b], rad[a:b]
+
+        # every part's contributions, zero for a box this rank does not render
+        contribs = [part(0)]
+        live_i = iter(range(1, len(live) + 1))
+        for b in boxes:
+            if b.active:
+                contribs.append(part(next(live_i)))
+            else:
+                z = torch.zeros(b.field.capacity, dtype=torch.float32,
+                                device=field.means.device)
+                contribs.append((z, z, z))
+        if comm is not None:
+            contribs = _reduce_contribs(contribs, comm)
+        stats = densify.apply_stats(state.stats, *contribs[0])
+        new_boxes = []
+        if boxes:
+            # box fields live in the unit canonical box: spatial scale 1, the
+            # means' rate times box_lr_mult, the static step counter
+            box_lrs = optim.field_lrs(opt_cfg, 1.0, state.step,
+                                      xyz_lr_mult=opt_cfg.box_lr_mult)
+            g_boxes = [optim.leaf_grads(b.field) for b in boxes]
+            if comm is not None:
+                g_boxes = _box_grad_means(g_boxes, boxes, comm)
+            live_deltas = iter(deltas)
+            for b, g, c in zip(boxes, g_boxes, contribs[1:]):
+                optim.adam_step(b.field, g, b.opt, box_lrs)
+                new = dataclasses.replace(b, stats=densify.apply_stats(b.stats,
+                                                                       *c))
+                if b.active:  # this rank's frame's residual, stepped here only
+                    d = next(live_deltas)
+                    g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # the NaN guard
+                           for k, v in d.as_dict().items()}
+                    nd, nopt = optim.tensor_adam_step(
+                        {k: v.detach() for k, v in d.as_dict().items()}, g_d,
+                        b.delta_opt, box_cfg.boxmodel_lr)
+                    new = dataclasses.replace(new, deltas=BoxDeltas(**nd),
+                                              delta_opt=nopt)
+                new_boxes.append(new)
     metrics = {**metrics, **caps, **extra}
     return (TrainState(field=field, opt=state.opt, stats=stats,
                        step=state.step + 1), metrics, new_boxes)
@@ -601,9 +607,10 @@ class Trainer:
         insts = [i for i in boxes if i in self.box_fields][: self.max_box_slots]
         if not insts:
             return [], []
-        b2w = torch.from_numpy(np.stack(
-            [box_matrix(boxes[i]) for i in insts]).astype(np.float32)
-        ).to(self.device)
+        with trace.span("boxes.copy", sync=True):
+            b2w = torch.from_numpy(np.stack(
+                [box_matrix(boxes[i]) for i in insts]).astype(np.float32)
+            ).to(self.device)
         steps = []
         for j, inst in enumerate(insts):
             key = (frame, inst)
@@ -620,41 +627,58 @@ class Trainer:
 
     def _targets(self, cam):
         """(gt, normal, normal_valid) of a camera on the device."""
-        gt = torch.from_numpy(
-            np.asarray(cam.original_image, np.float32)).to(self.device)
-        wn = cam.world_normal()
-        normal = (torch.from_numpy(np.asarray(wn, np.float32)).to(self.device)
-                  if wn is not None else torch.zeros_like(gt))
-        return gt, normal, 0.0 if wn is None else 1.0
+        with trace.span("targets.copy", sync=True):  # from pageable memory
+            gt = torch.from_numpy(
+                np.asarray(cam.original_image, np.float32)).to(self.device)
+        with trace.span("targets.normal"):  # on the host, in numpy
+            wn = cam.world_normal()
+        if wn is None:
+            return gt, torch.zeros_like(gt), 0.0
+        with trace.span("targets.copy", sync=True):
+            normal = torch.from_numpy(np.asarray(wn, np.float32)).to(
+                self.device)
+        return gt, normal, 1.0
 
     def train_iteration(self, it: int, camera=None) -> dict:
-        if self.comm is not None:
-            # an explicit camera is repeated over the ranks: the mean of D
-            # equal gradients is the camera's gradient, and the densify
-            # statistics count it D times in accum and denom alike
-            cams = None if camera is None else [camera] * self.dp_devices
-            return self._train_iteration_dp(it, cameras=cams)
-        cam = camera if camera is not None else self._next_camera()
-        gt, normal, normal_valid = self._targets(cam)
-        frame = int(getattr(cam, "frame", 0))
-        insts, box_steps = self._box_steps(frame)
-        guided, perceptual = self._step_extras(it, cam)
-        self.state, metrics, stepped = train_step(
-            self.state, cam.device_params(self.device), gt, normal,
-            normal_valid, self._active_sh_degree(it), self.bg,
-            opt_cfg=self.cfg.opt, raster_cfg=self.raster_cfg,
-            spatial_scale=self.spatial_scale,
-            sh_total_degree=self.cfg.model.sh_degree,
-            boxes=box_steps, box_cfg=self.cfg.box, guidance=guided,
-            perceptual=perceptual)
-        for inst, b in zip(insts, stepped):
-            self.box_stats[inst] = b.stats
-            self.frame_deltas[(frame, inst)] = b.deltas
-            self.frame_delta_opts[(frame, inst)] = b.delta_opt
-        metrics = {k: float(v) for k, v in metrics.items()}
-        self._adapt_k_cap(metrics["num_dropped"], metrics["num_needed"],
-                          metrics["num_needed_raw"])
-        self._densify_and_reset(it)
+        with trace.span("train.step"):
+            if self.comm is not None:
+                # an explicit camera is repeated over the ranks: the mean of D
+                # equal gradients is the camera's gradient, and the densify
+                # statistics count it D times in accum and denom alike
+                cams = None if camera is None else [camera] * self.dp_devices
+                return self._train_iteration_dp(it, cameras=cams)
+            cam = camera if camera is not None else self._next_camera()
+            with trace.span("train.targets"):
+                gt, normal, normal_valid = self._targets(cam)
+                params = cam.device_params(self.device)
+            frame = int(getattr(cam, "frame", 0))
+            with trace.span("train.boxes"):
+                insts, box_steps = self._box_steps(frame)
+            guided, perceptual = self._step_extras(it, cam)
+            self.state, metrics, stepped = train_step(
+                self.state, params, gt, normal,
+                normal_valid, self._active_sh_degree(it), self.bg,
+                opt_cfg=self.cfg.opt, raster_cfg=self.raster_cfg,
+                spatial_scale=self.spatial_scale,
+                sh_total_degree=self.cfg.model.sh_degree,
+                boxes=box_steps, box_cfg=self.cfg.box, guidance=guided,
+                perceptual=perceptual)
+            for inst, b in zip(insts, stepped):
+                self.box_stats[inst] = b.stats
+                self.frame_deltas[(frame, inst)] = b.deltas
+                self.frame_delta_opts[(frame, inst)] = b.delta_opt
+            return self._end_step(it, metrics)
+
+    def _end_step(self, it: int, metrics: dict) -> dict:
+        """Read the step's metrics to the host, adapt the capacities and
+        densify on schedule; the metrics as floats."""
+        with trace.span("train.read", sync=True):
+            metrics = {k: float(v) for k, v in metrics.items()}
+        with trace.span("train.kcap"):
+            self._adapt_k_cap(metrics["num_dropped"], metrics["num_needed"],
+                              metrics["num_needed_raw"])
+        with trace.span("train.densify"):
+            self._densify_and_reset(it)
         return metrics
 
     def _train_iteration_dp(self, it: int, cameras=None) -> dict:
@@ -678,7 +702,9 @@ class Trainer:
             raise ValueError(f"need {D} cameras, got {len(cams)}")
         me = comm.index
         cam = cams[me]
-        gt, normal, normal_valid = self._targets(cam)
+        with trace.span("train.targets"):
+            gt, normal, normal_valid = self._targets(cam)
+            params = cam.device_params(self.device)
         frames = [int(getattr(c, "frame", 0)) for c in cams]
         per_cam = [self._frame_boxes(f) for f in frames]
         union = []
@@ -696,9 +722,13 @@ class Trainer:
                 self.frame_deltas[key] = BoxDeltas.identity(device=self.device)
                 self.frame_delta_opts[key] = optim.tensor_adam_init(
                     self.frame_deltas[key].as_dict())
-            b2w = (torch.from_numpy(box_matrix(mine[inst]).astype(np.float32))
-                   .to(self.device) if active
-                   else torch.eye(4, device=self.device))
+            if active:
+                with trace.span("boxes.copy", sync=True):
+                    b2w = torch.from_numpy(
+                        box_matrix(mine[inst]).astype(np.float32)).to(
+                            self.device)
+            else:
+                b2w = torch.eye(4, device=self.device)
             deltas = (self.frame_deltas[key] if active
                       else BoxDeltas.identity(device=self.device))
             dopt = (self.frame_delta_opts[key] if active
@@ -710,7 +740,7 @@ class Trainer:
 
         extra_metrics, g_extra = self._dp_extras(it, cams[0])
         self.state, metrics, stepped = train_step(
-            self.state, cam.device_params(self.device), gt, normal,
+            self.state, params, gt, normal,
             normal_valid, self._active_sh_degree(it), self.bg,
             opt_cfg=self.cfg.opt, raster_cfg=self.raster_cfg,
             spatial_scale=self.spatial_scale,
@@ -729,11 +759,7 @@ class Trainer:
                         self.frame_deltas[(frames[d], inst)], \
                             self.frame_delta_opts[(frames[d], inst)] = \
                             _unpack_delta(packed[d, si])
-        metrics = {k: float(v) for k, v in {**metrics, **extra_metrics}.items()}
-        self._adapt_k_cap(metrics["num_dropped"], metrics["num_needed"],
-                          metrics["num_needed_raw"])
-        self._densify_and_reset(it)
-        return metrics
+        return self._end_step(it, {**metrics, **extra_metrics})
 
     def _dp_extras(self, it: int, cam0):
         """(metrics, g_extra) of the data-parallel step's optional terms,
