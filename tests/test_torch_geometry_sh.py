@@ -123,3 +123,14 @@ def test_camera_matrices_are_copies():
                                   jgeo.projection_matrix_from_K(*args))
     assert tgeo.fov_to_focal(1.2, 1408) == jgeo.fov_to_focal(1.2, 1408)
     assert tgeo.focal_to_fov(600.0, 1408) == jgeo.focal_to_fov(600.0, 1408)
+
+
+def test_cam_normal_to_world_normal():
+    rng = np.random.default_rng(5)
+    n = rng.normal(size=(6, 7, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    R = (q * np.sign(np.linalg.det(q))).astype(np.float32)  # a rotation
+    _close(tgeo.cam_normal_to_world_normal(torch.from_numpy(n),
+                                           torch.from_numpy(R)),
+           jgeo.cam_normal_to_world_normal(jnp.asarray(n), jnp.asarray(R)))

@@ -41,14 +41,16 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED = 2 ** 31 + 11
 
 # the sync spans (`sync=True`): copies from pageable memory, reads to the
-# host, `nonzero` and boolean masks' indexes
+# host, `nonzero` and boolean masks' indexes, and the targets' copies
+# through their staging buffers, each of which waits for its buffer's
+# previous copy
 SYNC_SPANS = {"targets.copy", "camera.copy", "sh_mask.copy", "bin.nonzero",
               "bin.mask", "ssim.copy", "densify.copy", "train.read"}
 
 STEP_TREE = [
     ("train.step", None),
     ("train.targets", "train.step"), ("targets.copy", "train.targets"),
-    ("targets.normal", "train.targets"), ("targets.copy", "train.targets"),
+    ("targets.copy", "train.targets"), ("targets.normal", "train.targets"),
     ("camera.copy", "train.targets"),
     ("train.boxes", "train.step"),
     ("render.arrays", "train.step"), ("sh_mask.copy", "render.arrays"),
@@ -160,11 +162,14 @@ def test_toy_step_and_frame_nest(toy_units):
 
 
 def test_toy_host_syncs(toy_units):
-    """The sync spans sit at the sync sites; on the CPU nothing syncs."""
+    """The sync spans sit at the sync sites; on the CPU nothing syncs. The
+    step rotates its camera's normal map on the device
+    (`targets.normal_device`)."""
     for u in toy_units:
         assert [s.name for s in u.spans if s.sync] == [
             s.name for s in u.spans if s.name in SYNC_SPANS]
-        assert u.counts == {}
+    assert toy_units[0].counts == {"targets.normal_device": 1}
+    assert toy_units[1].counts == {}
     assert sum(s.sync for s in toy_units[0].spans) == 2 + 1 + 1 + 1 + 9 + 3
     assert sum(s.sync for s in toy_units[1].spans) == 1 + 1 + 1 + 4
 
@@ -463,7 +468,9 @@ def test_host_sync_count_is_complete():
     units = trace.recorded()
     assert [u.spans[0].name for u in units] == ["train.step", "video.frame"]
     assert all(u.counts["host_sync"] for u in units)
-    assert [k for u in units for k in u.counts] == ["host_sync"] * 2
+    assert units[0].counts["targets.normal_device"] == 1
+    assert [sorted(u.counts) for u in units] == [
+        ["host_sync", "targets.normal_device"], ["host_sync"]]
     assert len(warned) == sum(u.counts["host_sync"] for u in units)
     assert all(s.start_us is not None for u in units for s in u.spans)
     assert torch.cuda.get_sync_debug_mode() == 0

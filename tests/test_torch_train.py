@@ -15,6 +15,11 @@ tests/test_training.py:19 (150 points, 5 train + 1 test random cameras at
     (float32 sums in another order, amplified by six Adam steps; measured
     <= 6e-6), the same capacity, active count and validity mask.
   * The port's own `test_static_training_descends`.
+  * The step's targets (`Trainer._targets`): the normal map rotated on
+    the device within 5e-7 of the host's float64 product rounded to
+    float32 (`Camera.world_normal`), zeros and valid 0 without a map, a
+    step's losses as with the host-rotated target to float32 rounding,
+    and the staging buffer's copies of any layout.
 """
 
 import dataclasses
@@ -32,7 +37,7 @@ from vegs_torch.config import ModelParams, VegsConfig
 from vegs_torch.ops.rasterize import RasterizeConfig
 from vegs_torch.render import render
 from vegs_torch.scene import Scene, dataset_readers as treaders
-from vegs_torch.train import Trainer
+from vegs_torch.train import Staging, Trainer
 
 K_CAP = 1 << 13
 
@@ -166,3 +171,86 @@ def test_trainer_needs_its_device(monkeypatch):
         Trainer(VegsConfig(), scene)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Scene(ModelParams(), scene_info=_scene_info(treaders), shuffle=False)
+
+
+def _normal_scene(seed=0):
+    """The toy trainer and its train cameras, each given its render as
+    the image and a seeded camera-space unit normal map, the colours then
+    offset (something to learn)."""
+    raster = RasterizeConfig(k_cap=K_CAP)
+    scene = Scene(ModelParams(), scene_info=_scene_info(treaders),
+                  shuffle=False, device="cpu")
+    tr = Trainer(VegsConfig(), scene, raster_cfg=raster, device="cpu")
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for cam in scene.train_cameras:
+            out = render(cam, tr.state.field,
+                         config=raster._replace(forward_only=True))
+            cam.image = np.clip(out.rgb.numpy(), 0, 1)
+            n = rng.normal(size=(3, cam.image_height, cam.image_width))
+            cam.normal = (n / np.linalg.norm(n, axis=0)).astype(np.float32)
+        tr.state.field.sh_dc += 0.35
+    return tr, scene.train_cameras
+
+
+def test_targets_rotate_the_normal_map():
+    tr, cams = _normal_scene()
+    # a map in another layout, as `_load_normal` returns one
+    cams[1].normal = np.ascontiguousarray(
+        cams[1].normal.transpose(1, 2, 0)).transpose(2, 0, 1)
+    for cam in cams:
+        gt, normal, valid = tr._targets(cam)
+        assert valid == 1.0 and normal.dtype == torch.float32
+        assert normal.shape == gt.shape == cam.normal.shape
+        np.testing.assert_allclose(
+            normal.numpy(), np.asarray(cam.world_normal(), np.float32),
+            rtol=0, atol=5e-7)
+        np.testing.assert_array_equal(gt.numpy(), cam.image)
+
+
+def test_targets_without_a_normal_map():
+    tr, cams = _normal_scene()
+    cams[0].normal = None
+    gt, normal, valid = tr._targets(cams[0])
+    assert valid == 0.0 and normal.shape == gt.shape
+    assert not normal.any()
+    np.testing.assert_array_equal(gt.numpy(), cams[0].image)
+
+
+def _host_targets(tr, cam):
+    """The targets with the normals rotated on the host in numpy
+    (`Camera.world_normal`), each copied as it is."""
+    gt = torch.from_numpy(np.asarray(cam.original_image, np.float32))
+    wn = cam.world_normal()
+    if wn is None:
+        return gt.to(tr.device), torch.zeros_like(gt), 0.0
+    return (gt.to(tr.device),
+            torch.from_numpy(np.asarray(wn, np.float32)).to(tr.device), 1.0)
+
+
+def test_a_step_matches_the_host_rotated_target(monkeypatch):
+    dev, host = _normal_scene(), _normal_scene()
+    monkeypatch.setattr(host[0], "_targets",
+                        lambda cam: _host_targets(host[0], cam))
+    for it in (1, 2, 3):
+        a = dev[0].train_iteration(it, camera=dev[1][it])
+        b = host[0].train_iteration(it, camera=host[1][it])
+        assert a["normal_loss"] > 0
+        for k in ("loss", "normal_loss"):
+            assert a[k] == pytest.approx(b[k], rel=1e-6, abs=0), k
+
+
+def test_staging_copies_any_layout():
+    st = Staging(torch.device("cpu"))
+    a = np.arange(24, dtype=np.float32).reshape(2, 3, 4).transpose(2, 0, 1)
+    r = np.linspace(-1.0, 1.0, 9).reshape(3, 3)  # float64
+    x, y = st.send(a, r)
+    assert x.dtype == y.dtype == torch.float32
+    assert x.shape == a.shape and y.shape == r.shape
+    np.testing.assert_array_equal(x.numpy(), a)
+    np.testing.assert_array_equal(y.numpy(), r.astype(np.float32))
+    (z,) = st.send(np.full(5, 7.0))  # the buffer filled again
+    np.testing.assert_array_equal(x.numpy(), a)  # results are copies
+    np.testing.assert_array_equal(z.numpy(), np.full(5, 7.0, np.float32))
+    (w,) = st.send(np.ones((40, 2)))  # grown
+    assert st.buf.numel() >= 80 and w.shape == (40, 2) and bool(w.eq(1).all())

@@ -294,3 +294,9 @@ def normal_to_rot(normals: torch.Tensor) -> torch.Tensor:
     c = torch.linalg.cross(n, b, dim=-1)
     return torch.stack([n, b, c], dim=-1)  # columns
 
+
+def cam_normal_to_world_normal(normals_cam: torch.Tensor,
+                               R_c2w: torch.Tensor) -> torch.Tensor:
+    """Camera-space normals [..., 3] rotated into world space by the
+    camera-to-world rotation R_c2w [3, 3] (`Camera.R`, 3DGS convention)."""
+    return normals_cam @ R_c2w.T

@@ -335,6 +335,9 @@ def bin_raw(
         gdmax = (shift_right_logical(rec_g[:, 0], 24) & 255
                  ).to(torch.float32) * (DMAX_QUANT / 255.0)
         inv_ga, inv_gc = _conic_invs(ga, gc)
+    # the records are read: free them before the sort, where a training
+    # step's device memory peaks
+    del rec, rec_g, goff
 
     if compact:
         # Small rects: slot li holds the li-th SURVIVING cell.

@@ -65,7 +65,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import boxmodel, convert, densify, optim, resolve_device
+from . import boxmodel, convert, densify, geometry, optim, resolve_device
 from .boxmodel import BoxDeltas
 from .config import VegsConfig
 from .gaussians import DensifyStats, GaussianField
@@ -405,6 +405,40 @@ def perceptual_grads(field: GaussianField, perceptual: Perceptual,
     return p_loss.detach(), _param_grads(p_loss, field)
 
 
+class Staging:
+    """A host buffer, reused from copy to copy, through which arrays go to
+    `device` in one copy that does not block the host. On a card the
+    buffer is pinned, and a timing-free event recorded behind each copy is
+    awaited before the buffer is filled again, so a copy still reading it
+    is never overwritten."""
+
+    def __init__(self, device):
+        self.device = device
+        self.buf = torch.empty(0)
+        self.copied = (torch.cuda.Event() if device.type == "cuda"
+                       else None)
+
+    def send(self, *arrays) -> list:
+        """The `arrays` (numpy, any layout) on the device as float32
+        tensors of their shapes, in one copy."""
+        arrays = [np.asarray(a) for a in arrays]
+        sizes = [a.size for a in arrays]
+        total = sum(sizes)
+        if self.copied is not None:
+            self.copied.synchronize()  # at once unless the last copy runs
+        if self.buf.numel() < total:
+            self.buf = torch.empty(total, dtype=torch.float32,
+                                   pin_memory=self.copied is not None)
+        host, at = self.buf[:total], 0
+        for a, k in zip(arrays, sizes):  # torch's copy runs on its threads
+            host[at:at + k].view(a.shape).copy_(torch.from_numpy(a))
+            at += k
+        dev = host.to(self.device, non_blocking=True, copy=True)
+        if self.copied is not None:
+            self.copied.record(torch.cuda.current_stream(self.device))
+        return [t.view(a.shape) for t, a in zip(dev.split(sizes), arrays)]
+
+
 @dataclasses.dataclass
 class Trainer:
     """Host-side training of one scene, its static field and its box
@@ -502,6 +536,8 @@ class Trainer:
                 self._vgg = vgg_lib.init_params(g)
         self.viewpoint_stack = []
         self.metrics_log = []
+        # the ground truth's and the normal map's (with its rotation)
+        self.staging = (Staging(self.device), Staging(self.device))
 
     # -- helpers -----------------------------------------------------------
     def _next_camera(self):
@@ -626,17 +662,22 @@ class Trainer:
         return insts, steps
 
     def _targets(self, cam):
-        """(gt, normal, normal_valid) of a camera on the device."""
-        with trace.span("targets.copy", sync=True):  # from pageable memory
-            gt = torch.from_numpy(
-                np.asarray(cam.original_image, np.float32)).to(self.device)
-        with trace.span("targets.normal"):  # on the host, in numpy
-            wn = cam.world_normal()
-        if wn is None:
+        """(gt, normal, normal_valid) of a camera on the device: the image,
+        and the camera-space normal map with the camera's rotation, each
+        sent through its staging buffer; the normals rotated to world
+        space there in float32 (`Camera.world_normal`'s product)."""
+        # sync: each waits for its buffer's previous copy
+        with trace.span("targets.copy", sync=True):
+            (gt,) = self.staging[0].send(cam.original_image)
+        n = cam.original_normal
+        if n is None:
             return gt, torch.zeros_like(gt), 0.0
         with trace.span("targets.copy", sync=True):
-            normal = torch.from_numpy(np.asarray(wn, np.float32)).to(
-                self.device)
+            n, r_c2w = self.staging[1].send(n, cam.R)
+        with trace.span("targets.normal"):
+            trace.count("targets.normal_device")
+            normal = geometry.cam_normal_to_world_normal(
+                n.reshape(3, -1).T, r_c2w).T.reshape(n.shape)
         return gt, normal, 1.0
 
     def train_iteration(self, it: int, camera=None) -> dict:

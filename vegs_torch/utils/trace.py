@@ -14,7 +14,8 @@ and, where CUDA is initialized, two pooled timing events recorded as it
 opens and closes on the stream current when its unit opened, which place
 it on the device's timeline in stream order. `sync=True` marks a span
 that blocks the host on the device (a read to the host, `nonzero` or a
-boolean mask's index, a copy from pageable memory).
+boolean mask's index, a copy from pageable memory) or may (a staging
+buffer's wait for its previous copy).
 
 A unit is one `train.step` or `video.frame` (`UNITS`) opened outside any
 other unit. While one is open the host's syncs are counted as they
