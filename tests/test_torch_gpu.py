@@ -1037,3 +1037,58 @@ def test_staging_waits_for_its_last_copy(cuda):
     got = geometry.cam_normal_to_world_normal(dn.reshape(3, -1).T, dr).T
     want = (n.reshape(3, -1).T @ R.T).T.astype(np.float32)
     assert float(np.abs(got.cpu().numpy() - want).max()) <= 5e-7
+
+
+def _host_row_d_box2world(deltas):
+    """`boxmodel.d_box2world` with its constant row copied from the host
+    (a pageable copy, a sync): the control of the test below."""
+    R = geometry.quat_to_rotmat(deltas.delta_r)
+    top = torch.cat([deltas.delta_s[..., :, None] * R,
+                     deltas.delta_t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                          device=top.device).expand(*top.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def test_dynamic_step_and_frame_sync_only_in_sync_spans(cuda, monkeypatch):
+    """One training step and one frame of the toy dynamic configuration
+    (its 8 vehicles of 2,000 Gaussians, 200,000 static Gaussians at the
+    cells' 376x1408) record no `host_sync.unspanned.*`, and no host-device
+    copy of either lies outside a sync span (`bench_h100.align.misses` on
+    the profiler's device trace). The control: with `d_box2world`'s
+    constant row copied from the host, the step syncs 8 times inside
+    `boxes.compose` outside every sync span. (`test_torch_trace` is
+    imported by its name: pytest puts this directory on the path, and a
+    package named `tests` may shadow this one.)"""
+    from bench_h100.align import align, misses
+    from bench_h100.profile import record
+    from test_torch_trace import step_and_frame, toy_box_scene
+    from vegs_torch import boxmodel
+    from vegs_torch.utils import trace
+
+    args = toy_box_scene(cuda, gaussians=200_000, height=376, width=1408,
+                         box_points=2000)
+    step_and_frame(*args, it=3065)  # warm
+    torch.cuda.synchronize()
+
+    def traced():
+        trace.reset()
+        tr = record(lambda: step_and_frame(*args), cuda)
+        units = trace.recorded()
+        trace.reset()
+        return units, misses(align(units, tr.ops), tr.ops)
+
+    units, (stray, empty) = traced()
+    print("dynamic counts:", [u.counts for u in units], "misses:", stray, empty)
+    assert [u.spans[0].name for u in units] == ["train.step", "video.frame"]
+    assert [u.counts["boxes.instances"] for u in units] == [8, 8]
+    assert all(u.counts["host_sync"] for u in units)
+    assert not [k for u in units for k in u.counts
+                if k.startswith("host_sync.unspanned")]
+    assert stray == 0
+
+    monkeypatch.setattr(boxmodel, "d_box2world", _host_row_d_box2world)
+    units, (stray, _) = traced()
+    print("control counts:", [u.counts for u in units], "misses:", stray)
+    assert units[0].counts.get("host_sync.unspanned.boxes.compose") == 8
+    assert stray >= 8

@@ -16,6 +16,11 @@ benchmark's metrics that read them (`bench_h100/spans.py`,
     spans, idle inside sync spans, the syncs a unit; None where the trace
     holds no device operation, an operation crosses a unit's edge, or the
     program has no trace module;
+  * the box path, on one toy step and one toy frame with the dynamic
+    configuration's 8 vehicles: `boxes.compose` inside `render.arrays`,
+    `boxes.update` inside `train.update`, `boxes.instances` the boxes
+    composed; a static step and frame enter neither span; the box
+    metrics' arithmetic on the synthetic timeline;
   * on the card (`gpu`): every synchronizing call of one step and one
     frame is counted, and lies inside a sync span.
 """
@@ -31,7 +36,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from bench_h100 import inputs as inp, program, run, spans
+from bench_h100 import inputs as inp, loops, program, run, spans
 from bench_h100.align import align
 from bench_h100.profile import Trace
 from bench_h100.tests.toy import toy_cell
@@ -104,13 +109,42 @@ def toy_scene(dev, **sizes):
     return trainer, cams[1], view, rcfg._replace(forward_only=True)
 
 
-def step_and_frame(trainer, cam, view, fcfg, it=3066):
+def toy_box_scene(dev, **sizes):
+    """As `toy_scene`, of the toy dynamic configuration (`sizes` override
+    the toy's gaussians, height, width, box_points): its 8 vehicles in the
+    scene and the trainer, and the poses of the frame's vehicles last."""
+    from vegs_torch.config import VegsConfig
+    from vegs_torch.scene.cameras import make_camera_like_input_camera
+    from vegs_torch.train import Trainer
+
+    cfg = dict(toy_cell("dynamic-train")["config"], **sizes)
+    program.build_kernels(dev)
+    field = program.make_field(inp.synthetic_field(cfg, SEED, dev))
+    box_fields, box_poses = loops._boxes(cfg, SEED, dev)
+    scene = program.make_scene(cfg, inp.street_poses(cfg), field, dev,
+                               box_fields, box_poses)
+    cams = scene.getTrainCameras()
+    rng = np.random.default_rng(0)
+    for c, nm in zip(cams, inp.normal_maps(cfg, SEED, len(cams), dev)):
+        c.normal = nm.cpu().numpy()
+        c.image = rng.random((3, cfg["height"], cfg["width"]),
+                             dtype=np.float32)
+    cap = 1 << (18 if cfg["gaussians"] <= 3000 else 24)
+    rcfg = program.raster_config(cfg, k_cap=cap, k_pad=cap)
+    trainer = Trainer(VegsConfig(), scene, raster_cfg=rcfg, device=dev)
+    view = make_camera_like_input_camera(cams[0], add_zrot_val=0.0,
+                                         add_xrot_val=0.0, add_tz=0.0)
+    return (trainer, cams[1], view, rcfg._replace(forward_only=True),
+            box_poses[cams[0].frame])
+
+
+def step_and_frame(trainer, cam, view, fcfg, boxes=None, it=3066):
     from vegs_torch import render_video
 
     m = trainer.train_iteration(it, camera=cam)
     with torch.inference_mode():
-        out = render_video._render_view(trainer.scene, view, {}, fcfg,
-                                        trainer.bg)
+        out = render_video._render_view(trainer.scene, view, boxes or {},
+                                        fcfg, trainer.bg)
     return m, out
 
 
@@ -121,6 +155,19 @@ def toy_units():
     args = toy_scene(torch.device("cpu"))
     step_and_frame(*args)  # off: nothing recorded
     assert trace.recorded() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        m, out = step_and_frame(*args)
+    assert m["num_dropped"] == 0 and int(out.num_dropped) == 0
+    units = trace.recorded()
+    trace.reset()
+    return units
+
+
+@pytest.fixture(scope="module")
+def toy_box_units():
+    torch.set_num_threads(2)
+    trace.reset()
+    args = toy_box_scene(torch.device("cpu"))
     with profile(activities=[ProfilerActivity.CPU]):
         m, out = step_and_frame(*args)
     assert m["num_dropped"] == 0 and int(out.num_dropped) == 0
@@ -172,6 +219,38 @@ def test_toy_host_syncs(toy_units):
     assert toy_units[1].counts == {}
     assert sum(s.sync for s in toy_units[0].spans) == 2 + 1 + 1 + 1 + 9 + 3
     assert sum(s.sync for s in toy_units[1].spans) == 1 + 1 + 1 + 4
+
+
+BOX_SPANS = ("boxes.compose", "boxes.update")
+
+
+def test_box_spans_nest(toy_box_units):
+    """One `boxes.compose` a unit, inside `render.arrays`, holding each box
+    field's SH mask copy; one `boxes.update` a step, inside
+    `train.update`; the vehicles' matrices copied in `boxes.copy`."""
+    step, frame = toy_box_units
+    for u, update in ((step, ["train.update"]), (frame, [])):
+        t = tree(u)
+        assert [p for n, p in t if n == "boxes.compose"] == ["render.arrays"]
+        assert [p for n, p in t if n == "boxes.update"] == update
+        assert [n for n, p in t if p == "boxes.compose"] == ["sh_mask.copy"] * 8
+        assert sum(n == "boxes.copy" for n, _ in t) == 1
+        assert [s.name for s in u.spans if s.sync] == [
+            s.name for s in u.spans if s.name in SYNC_SPANS | {"boxes.copy"}]
+    assert ("boxes.copy", "video.frame") in tree(frame)
+    assert ("boxes.copy", "train.boxes") in tree(step)
+
+
+def test_box_instances_count_the_boxes(toy_box_units):
+    step, frame = toy_box_units
+    assert step.counts == {"targets.normal_device": 1, "boxes.instances": 8}
+    assert frame.counts == {"boxes.instances": 8}
+
+
+def test_static_units_enter_no_box_span(toy_units):
+    for u in toy_units:
+        assert not {s.name for s in u.spans} & set(BOX_SPANS)
+        assert "boxes.instances" not in u.counts
 
 
 def test_sync_warnings_are_counted():
@@ -432,10 +511,69 @@ def test_new_metrics_are_the_benchmarks():
     assert len(NEW) == 13
     for name in NEW:
         m = got[name]
-        cell = "static-train" if name.endswith(".train") else "static-serve"
-        assert m["workloads"] == [cell] and m["better"] == "lower"
-        assert m["moves"] == {"static-train": "train_steps_per_s",
-                              "static-serve": "serve_frames_per_s"}[cell]
+        kind = "train" if name.endswith(".train") else "serve"
+        assert m["workloads"] == {"train": ["static-train"],
+                                  "serve": ["static-serve", "dynamic-serve"]}[kind]
+        assert m["better"] == "lower"
+        assert m["moves"] == {"train": "train_steps_per_s",
+                              "serve": "serve_frames_per_s"}[kind]
+
+
+BOX_METRICS = ["box_compose_ms.serve", "box_idle_ms.serve"]
+
+
+def box_timeline(instances=8):
+    """The synthetic timeline with its gather spans renamed `boxes.compose`,
+    its backward spans `boxes.update`, and `instances` boxes counted."""
+    tl = Timeline()
+    names = {"raster.gather": "boxes.compose", "train.backward": "boxes.update"}
+    counts = {"host_sync": 8, "boxes.instances": instances}
+    tl.units = [u._replace(spans=[x._replace(name=names.get(x.name, x.name))
+                                  for x in u.spans],
+                           counts={k: v for k, v in counts.items() if v})
+                for u in tl.units]
+    return tl
+
+
+def test_box_metrics_on_a_synthetic_trace(monkeypatch):
+    """Busy ms inside `boxes.compose`; idle ms inside the union of the box
+    spans (here the two stages' idle); None where no unit counted
+    `boxes.instances`, where the trace holds no device operation, or where
+    the program has no trace module."""
+    tl = box_timeline()
+    r = reading(monkeypatch, tl.units, tl.ops)
+    ms = pytest.approx
+    table = spans.table(r)
+    for part in ("train", "serve"):
+        assert run.metric_reader(f"box_compose_ms.{part}")(r) == ms(
+            tl.busy["raster.gather"], abs=2e-3)
+        assert run.metric_reader(f"box_idle_ms.{part}")(r) == ms(
+            table["boxes.compose"]["idle_ms"] + table["boxes.update"]["idle_ms"])
+    assert table["boxes.update"]["idle_ms"] > 0
+    for name in BOX_METRICS:
+        tl = box_timeline(instances=0)
+        assert run.metric_reader(name)(reading(monkeypatch, tl.units,
+                                               tl.ops)) is None
+        tl = box_timeline()
+        assert run.metric_reader(name)(reading(monkeypatch, tl.units,
+                                               [])) is None
+
+
+@pytest.mark.parametrize("name", BOX_METRICS)
+def test_box_metrics_are_the_benchmarks(name, monkeypatch):
+    """Each box metric lists its dynamic cell alone and moves its rate;
+    without the trace module it reads None."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    m = {x["name"]: x for x in bench["per_layer"]}[name]
+    kind = name.rsplit(".", 1)[1]
+    assert m["workloads"] == [f"dynamic-{kind}"] and m["unit"] == "ms"
+    assert m["moves"] == {"train": "train_steps_per_s",
+                          "serve": "serve_frames_per_s"}[kind]
+    tl = box_timeline()
+    r = reading(monkeypatch, tl.units, tl.ops)
+    monkeypatch.setitem(sys.modules, "vegs_torch.utils.trace", None)
+    monkeypatch.delattr("vegs_torch.utils.trace")
+    assert run.metric_reader(name)(r) is None
 
 
 @pytest.mark.gpu

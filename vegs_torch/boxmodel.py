@@ -33,8 +33,9 @@ class BoxDeltas:
     @staticmethod
     def identity(device=None) -> "BoxDeltas":
         dev = resolve_device(device)
-        return BoxDeltas(
-            delta_r=torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+        return BoxDeltas(  # built on the device: no copy from the host
+            delta_r=torch.cat([torch.ones(1, device=dev),
+                               torch.zeros(3, device=dev)]),
             delta_s=torch.ones(3, device=dev),
             delta_t=torch.zeros(3, device=dev),
         )
@@ -48,8 +49,11 @@ def d_box2world(deltas: BoxDeltas) -> torch.Tensor:
     R = geometry.quat_to_rotmat(deltas.delta_r)
     SR = deltas.delta_s[..., :, None] * R  # row-scaling = diag(s) @ R
     top = torch.cat([SR, deltas.delta_t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device).expand(*top.shape[:-2], 1, 4)
+    # the constant row [0, 0, 0, 1] built on the device: no copy from the
+    # host, so no sync, in every box of every step
+    lead = top.shape[:-2]
+    bottom = torch.cat([top.new_zeros(lead + (1, 3)),
+                        top.new_ones(lead + (1, 1))], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -75,9 +79,11 @@ def safe_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
 
 
 def _identity_r(deltas: BoxDeltas) -> torch.Tensor:
-    e = torch.zeros_like(deltas.delta_r)
-    e[..., 0] = 1.0
-    return e
+    """(1, 0, 0, 0) in delta_r's shape, built on its device (a scalar set
+    into a 0-d slice of a card's tensor is copied from the host, a sync)."""
+    r = deltas.delta_r
+    return torch.cat([torch.ones_like(r[..., :1]), torch.zeros_like(r[..., 1:])],
+                     dim=-1)
 
 
 def regularize_loss(deltas: BoxDeltas) -> torch.Tensor:

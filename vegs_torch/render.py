@@ -14,7 +14,8 @@ in (`boxmodel.adjust_box2world`). The parts are concatenated [static | box_0
 | box_1 | ...] in front of the same `rasterize`, so the kernels (K1-K4) see
 one field; `_bounds` gives each part's rows, so the means2d tap's gradient
 splits per part for the densify statistics. `_run` is the training step's
-entry: it renders prepared field arrays with a means2d gradient tap."""
+entry: it renders prepared field arrays with a means2d gradient tap.
+`compose_boxes` moves the boxes under the span `boxes.compose`."""
 
 from __future__ import annotations
 
@@ -149,6 +150,16 @@ def _box_arrays(box: BoxInstance, active_sh_degree) -> FieldArrays:
     return transform_field_arrays(field_arrays(box.field, active_sh_degree), b2w)
 
 
+def compose_boxes(boxes: Sequence[BoxInstance],
+                  active_sh_degree) -> list[FieldArrays]:
+    """Each box's arrays in the world (`_box_arrays`), under the span
+    `boxes.compose`, the boxes counted in `boxes.instances`. Callers call it
+    only where there are boxes."""
+    with trace.span("boxes.compose"):
+        trace.count("boxes.instances", len(boxes))
+        return [_box_arrays(b, active_sh_degree) for b in boxes]
+
+
 def render_dyn(
     camera,
     boxes: Sequence[BoxInstance],
@@ -163,8 +174,7 @@ def render_dyn(
     """The boxes only (default scale modifier 2.0). Returns (RasterOut,
     row boundaries [len(boxes) + 1] over the concatenated Gaussians)."""
     with trace.span("render.arrays"):
-        arrays = _concat_arrays([_box_arrays(b, active_sh_degree)
-                                 for b in boxes])
+        arrays = _concat_arrays(compose_boxes(boxes, active_sh_degree))
     out = _run(camera, arrays, bg=bg, scale_modifier=scale_modifier,
                override_color=None, sh_degree=sh_degree, config=config,
                means2d_offset=means2d_offset)
@@ -188,7 +198,8 @@ def render_all(
     concatenated Gaussians: [static | box_0 | box_1 | ...])."""
     with trace.span("render.arrays"):
         parts = [field_arrays(static_field, active_sh_degree)]
-        parts += [_box_arrays(b, active_sh_degree) for b in boxes]
+        if boxes:
+            parts += compose_boxes(boxes, active_sh_degree)
         arrays = _concat_arrays(parts)
     out = _run(camera, arrays, bg=bg,
                scale_modifier=scale_modifier, override_color=None,

@@ -72,8 +72,8 @@ from .gaussians import DensifyStats, GaussianField
 from .losses import l1_loss, loss_normal_guidance, psnr, ssim
 from .ops.projection import CameraParams
 from .ops.rasterize import RasterizeConfig, RasterOut
-from .render import (BoxInstance, _bounds, _box_arrays, _concat_arrays, _run,
-                     field_arrays, render_all)
+from .render import (BoxInstance, _bounds, _concat_arrays, _run,
+                     compose_boxes, field_arrays, render_all)
 from .scene import Scene, box_matrix
 from .utils import trace
 
@@ -111,7 +111,8 @@ def loss_fn(field: GaussianField, m2d_offset, cam: CameraParams, gt, normal,
     l1, normal_loss, RasterOut)."""
     with trace.span("render.arrays"):
         parts = [field_arrays(field, active_sh_degree)]
-        parts += [_box_arrays(b, active_sh_degree) for b in boxes]
+        if boxes:
+            parts += compose_boxes(boxes, active_sh_degree)
         arrays = _concat_arrays(parts)
     out = _run(cam, arrays, bg=bg, scale_modifier=1.0,
                override_color=None, sh_degree=sh_total_degree,
@@ -292,26 +293,27 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
         if boxes:
             # box fields live in the unit canonical box: spatial scale 1, the
             # means' rate times box_lr_mult, the static step counter
-            box_lrs = optim.field_lrs(opt_cfg, 1.0, state.step,
-                                      xyz_lr_mult=opt_cfg.box_lr_mult)
-            g_boxes = [optim.leaf_grads(b.field) for b in boxes]
-            if comm is not None:
-                g_boxes = _box_grad_means(g_boxes, boxes, comm)
-            live_deltas = iter(deltas)
-            for b, g, c in zip(boxes, g_boxes, contribs[1:]):
-                optim.adam_step(b.field, g, b.opt, box_lrs)
-                new = dataclasses.replace(b, stats=densify.apply_stats(b.stats,
-                                                                       *c))
-                if b.active:  # this rank's frame's residual, stepped here only
-                    d = next(live_deltas)
-                    g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # the NaN guard
-                           for k, v in d.as_dict().items()}
-                    nd, nopt = optim.tensor_adam_step(
-                        {k: v.detach() for k, v in d.as_dict().items()}, g_d,
-                        b.delta_opt, box_cfg.boxmodel_lr)
-                    new = dataclasses.replace(new, deltas=BoxDeltas(**nd),
-                                              delta_opt=nopt)
-                new_boxes.append(new)
+            with trace.span("boxes.update"):
+                box_lrs = optim.field_lrs(opt_cfg, 1.0, state.step,
+                                          xyz_lr_mult=opt_cfg.box_lr_mult)
+                g_boxes = [optim.leaf_grads(b.field) for b in boxes]
+                if comm is not None:
+                    g_boxes = _box_grad_means(g_boxes, boxes, comm)
+                live_deltas = iter(deltas)
+                for b, g, c in zip(boxes, g_boxes, contribs[1:]):
+                    optim.adam_step(b.field, g, b.opt, box_lrs)
+                    new = dataclasses.replace(
+                        b, stats=densify.apply_stats(b.stats, *c))
+                    if b.active:  # this rank's frame's residual, stepped here
+                        d = next(live_deltas)
+                        g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # NaN guard
+                               for k, v in d.as_dict().items()}
+                        nd, nopt = optim.tensor_adam_step(
+                            {k: v.detach() for k, v in d.as_dict().items()},
+                            g_d, b.delta_opt, box_cfg.boxmodel_lr)
+                        new = dataclasses.replace(new, deltas=BoxDeltas(**nd),
+                                                  delta_opt=nopt)
+                    new_boxes.append(new)
     metrics = {**metrics, **caps, **extra}
     return (TrainState(field=field, opt=state.opt, stats=stats,
                        step=state.step + 1), metrics, new_boxes)
