@@ -494,10 +494,10 @@ def field_stage(field, cam, cfg, boxes=()):
     """`rasterize`'s stages before the blend of the field, and of the
     `boxes` (`BoxInstance`s) with it as `render_all` concatenates them."""
     from vegs_torch.ops.rasterize import stage
-    from vegs_torch.render import _box_arrays, _concat_arrays, field_arrays
+    from vegs_torch.render import _concat_arrays, compose_boxes, field_arrays
 
     a = _concat_arrays([field_arrays(field)]
-                       + [_box_arrays(b, 3) for b in boxes])
+                       + ([compose_boxes(boxes, 3)] if boxes else []))
     return stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
                  valid=a.valid, config=cfg)
 
@@ -749,11 +749,11 @@ def staged_loss(field, tap, cam, gt, normal, sh_degree, bg, opt_cfg,
     from vegs_torch import boxmodel
     from vegs_torch.ops.blend_cuda import BlendFn
     from vegs_torch.ops.rasterize import raster_out, stage
-    from vegs_torch.render import _box_arrays, _concat_arrays, field_arrays
+    from vegs_torch.render import _concat_arrays, compose_boxes, field_arrays
     from vegs_torch.train import image_loss
 
     a = _concat_arrays([field_arrays(field, sh_degree)]
-                       + [_box_arrays(b, sh_degree) for b in boxes])
+                       + ([compose_boxes(boxes, sh_degree)] if boxes else []))
     st = stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
                sh_degree=3, valid=a.valid, means2d_offset=tap,
                config=raster_cfg)

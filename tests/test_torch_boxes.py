@@ -5,6 +5,13 @@
     at 0 and the exact one elsewhere (tests/test_train_core.py:238).
   * `optim`: `field_lrs(xyz_lr_mult=)` and `tensor_adam_step` over three
     steps within 1e-6 (eps 1e-8, not the field Adam's 1e-15).
+  * `render.compose_boxes`' one batched pass against each box composed
+    alone (`transform_field_arrays` of its `field_arrays` at its
+    residual-adjusted transform), for three boxes of equal and of unequal
+    capacities, every box with a residual, none, and some: values, and
+    gradients to every box field's raw leaves and every residual, within
+    1e-6 of each leaf's largest value (the residuals' in float32: 2e-6,
+    their sums run over thousands of rows in another order).
   * `render.transform_field_arrays` within 1e-5, and `render_all` /
     `render_dyn` forward and gradients (static field, box fields and the
     deltas) against the JAX package's (Pallas backend in interpret mode,
@@ -189,6 +196,70 @@ def test_render_boxes_forward_and_grads_match_jax(which):
         print(name, err)
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                    atol=1e-4 * np.abs(ref).max(), err_msg=name)
+
+
+# float32 residual gradients: the worst reading is 1.16e-6 (box 0's
+# delta_s, at 1, 2, 3 and 8 threads alike)
+TOL_F32 = 2e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("caps", [(4096, 8192, 4096), (4096, 4096, 4096)])
+@pytest.mark.parametrize("with_deltas", ["all", "none", "some"])
+def test_compose_boxes_matches_each_box_alone(caps, with_deltas, dtype):
+    """Equal and unequal capacities go through the one row-by-row pass. A
+    residual's gradient sums its box's 4,096-8,192 rows, in another order
+    in the batch: in float32 the per-box sum itself lies up to 1.0e-6 of
+    the leaf's largest value from float64's, so there the residuals get
+    TOL_F32; float64 holds every leaf to 1e-6."""
+    rng = np.random.default_rng(7)
+    boxes = [(_field_np(rng, 50 + 20 * i, c, 0.45, 0.0, (0.04, 0.12)),
+              _b2w(0.3 + 0.4 * i, (1.6 - 0.2 * i, 0.8, 1.2 + 0.1 * i),
+                   (-0.8 + 0.7 * i, 0.1, 4.0 + 0.3 * i)),
+              _deltas_np(rng) if with_deltas == "all" or (
+                  with_deltas == "some" and i != 1) else None)
+             for i, c in enumerate(caps)]
+    sh_degree = 2
+
+    def make():
+        fields = [convert.field_from_numpy(f, device="cpu").to(dtype)
+                  for f, _, _ in boxes]
+        deltas = [None if d is None else tbox.BoxDeltas(**{
+            k: _t(v).to(dtype).requires_grad_(True) for k, v in d.items()})
+            for _, _, d in boxes]
+        insts = [trender.BoxInstance(field=f, box2world=_t(b[1]).to(dtype),
+                                     deltas=d)
+                 for f, b, d in zip(fields, boxes, deltas)]
+        return fields, deltas, insts
+
+    def alone(b):
+        b2w = (b.box2world if b.deltas is None
+               else tbox.adjust_box2world(b.box2world, b.deltas))
+        return trender.transform_field_arrays(
+            trender.field_arrays(b.field, sh_degree), b2w)
+
+    ref, new = make(), make()
+    want = trender._concat_arrays([alone(b) for b in ref[2]])
+    got = trender.compose_boxes(new[2], sh_degree)
+    rng = np.random.default_rng(9)
+    wts = {k: _t(rng.normal(size=getattr(want, k).shape)).to(dtype)
+           for k in ("means", "quats", "scales", "opacities", "shs")}
+    pairs = [(k, getattr(got, k).detach(), getattr(want, k).detach(), 1e-6)
+             for k in trender.FieldArrays._fields]
+    for arrays in (want, got):
+        sum((getattr(arrays, k) * w).sum() for k, w in wts.items()).backward()
+    pairs += [(f"box{i} {k}", getattr(g, k).grad, getattr(r, k).grad, 1e-6)
+              for i, (g, r) in enumerate(zip(new[0], ref[0])) for k in LEAVES]
+    tol = TOL_F32 if dtype == torch.float32 else 1e-6
+    pairs += [(f"delta{i} {k}", getattr(g, k).grad, getattr(r, k).grad, tol)
+              for i, (g, r) in enumerate(zip(new[1], ref[1]))
+              if r is not None for k in tbox.BoxDeltas.LEAVES]
+    for name, g, r, tol in pairs:
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        g, r = g.double().numpy(), r.double().numpy()
+        assert np.abs(r).max() > 0, name
+        np.testing.assert_allclose(g, r, rtol=0, atol=tol * np.abs(r).max(),
+                                   err_msg=name)
 
 
 def test_boxmodel_matches_jax():

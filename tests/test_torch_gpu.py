@@ -708,8 +708,9 @@ def test_render_all_with_boxes_kernels_match_plain(cuda):
     against their plain versions (the limits of the tests above); and the
     card's render equals the CPU's (plain versions) within 1e-4 on >=
     99.9% of the rgb values."""
-    from vegs_torch.render import (_box_arrays, _concat_arrays, field_arrays,
-                                   render_all)
+    from vegs_torch.boxmodel import adjust_box2world
+    from vegs_torch.render import (_concat_arrays, field_arrays, render_all,
+                                   transform_field_arrays)
 
     cfg = CFG._replace(k_cap=1 << 18, k_pad=1 << 18)
     outs = {}
@@ -726,8 +727,11 @@ def test_render_all_with_boxes_kernels_match_plain(cuda):
         outs[dev.type] = out
         if dev.type == "cuda":
             with torch.no_grad():
-                a = _concat_arrays([field_arrays(field)]
-                                   + [_box_arrays(b, 3) for b in boxes])
+                a = _concat_arrays([field_arrays(field)] + [
+                    transform_field_arrays(field_arrays(b.field, 3),
+                                           adjust_box2world(b.box2world,
+                                                            b.deltas))
+                    for b in boxes])
                 st = stage(a.means, a.quats, a.scales, a.opacities, a.shs,
                            cam, valid=a.valid, config=cfg)
             assert st.sat_counts is not None
@@ -1055,9 +1059,11 @@ def test_dynamic_step_and_frame_sync_only_in_sync_spans(cuda, monkeypatch):
     (its 8 vehicles of 2,000 Gaussians, 200,000 static Gaussians at the
     cells' 376x1408) record no `host_sync.unspanned.*`, and no host-device
     copy of either lies outside a sync span (`bench_h100.align.misses` on
-    the profiler's device trace). The control: with `d_box2world`'s
-    constant row copied from the host, the step syncs 8 times inside
-    `boxes.compose` outside every sync span. (`test_torch_trace` is
+    the profiler's device trace). The frame syncs twice more than the same
+    frame without its vehicles: their matrices' one copy and their one SH
+    mask, for all 8 composed in one pass. The control: with
+    `d_box2world`'s constant row copied from the host, the step syncs once
+    inside `boxes.compose` outside every sync span. (`test_torch_trace` is
     imported by its name: pytest puts this directory on the path, and a
     package named `tests` may shadow this one.)"""
     from bench_h100.align import align, misses
@@ -1068,27 +1074,35 @@ def test_dynamic_step_and_frame_sync_only_in_sync_spans(cuda, monkeypatch):
 
     args = toy_box_scene(cuda, gaussians=200_000, height=376, width=1408,
                          box_points=2000)
-    step_and_frame(*args, it=3065)  # warm
+    scene, poses = args[:4], args[4]
+    step_and_frame(*scene, poses, it=3065)  # warm
+    step_and_frame(*scene, it=3065)
     torch.cuda.synchronize()
 
-    def traced():
+    def traced(boxes):
         trace.reset()
-        tr = record(lambda: step_and_frame(*args), cuda)
+        tr = record(lambda: step_and_frame(*scene, boxes), cuda)
         units = trace.recorded()
         trace.reset()
         return units, misses(align(units, tr.ops), tr.ops)
 
-    units, (stray, empty) = traced()
+    units, (stray, empty) = traced(poses)
     print("dynamic counts:", [u.counts for u in units], "misses:", stray, empty)
     assert [u.spans[0].name for u in units] == ["train.step", "video.frame"]
     assert [u.counts["boxes.instances"] for u in units] == [8, 8]
+    assert [sum(s.name == "boxes.compose" for s in u.spans)
+            for u in units] == [1, 1]
     assert all(u.counts["host_sync"] for u in units)
     assert not [k for u in units for k in u.counts
                 if k.startswith("host_sync.unspanned")]
     assert stray == 0
+    static, _ = traced(None)
+    print("static frame counts:", static[1].counts)
+    assert "boxes.instances" not in static[1].counts
+    assert units[1].counts["host_sync"] == static[1].counts["host_sync"] + 2
 
     monkeypatch.setattr(boxmodel, "d_box2world", _host_row_d_box2world)
-    units, (stray, _) = traced()
+    units, (stray, _) = traced(poses)
     print("control counts:", [u.counts for u in units], "misses:", stray)
-    assert units[0].counts.get("host_sync.unspanned.boxes.compose") == 8
-    assert stray >= 8
+    assert units[0].counts.get("host_sync.unspanned.boxes.compose") == 1
+    assert stray >= 1

@@ -19,7 +19,8 @@ benchmark's metrics that read them (`bench_h100/spans.py`,
   * the box path, on one toy step and one toy frame with the dynamic
     configuration's 8 vehicles: `boxes.compose` inside `render.arrays`,
     `boxes.update` inside `train.update`, `boxes.instances` the boxes
-    composed; a static step and frame enter neither span; the box
+    composed in one pass (one `boxes.compose` span); a static step and
+    frame enter neither span; the box
     metrics' arithmetic on the synthetic timeline;
   * on the card (`gpu`): every synchronizing call of one step and one
     frame is counted, and lies inside a sync span.
@@ -225,15 +226,15 @@ BOX_SPANS = ("boxes.compose", "boxes.update")
 
 
 def test_box_spans_nest(toy_box_units):
-    """One `boxes.compose` a unit, inside `render.arrays`, holding each box
-    field's SH mask copy; one `boxes.update` a step, inside
+    """One `boxes.compose` a unit, inside `render.arrays`, holding one SH
+    mask copy for all the box fields; one `boxes.update` a step, inside
     `train.update`; the vehicles' matrices copied in `boxes.copy`."""
     step, frame = toy_box_units
     for u, update in ((step, ["train.update"]), (frame, [])):
         t = tree(u)
         assert [p for n, p in t if n == "boxes.compose"] == ["render.arrays"]
         assert [p for n, p in t if n == "boxes.update"] == update
-        assert [n for n, p in t if p == "boxes.compose"] == ["sh_mask.copy"] * 8
+        assert [n for n, p in t if p == "boxes.compose"] == ["sh_mask.copy"]
         assert sum(n == "boxes.copy" for n, _ in t) == 1
         assert [s.name for s in u.spans if s.sync] == [
             s.name for s in u.spans if s.name in SYNC_SPANS | {"boxes.copy"}]
@@ -242,9 +243,13 @@ def test_box_spans_nest(toy_box_units):
 
 
 def test_box_instances_count_the_boxes(toy_box_units):
+    """All 8 boxes of a unit are composed in one pass: one `boxes.compose`
+    span for the 8 that `boxes.instances` counts."""
     step, frame = toy_box_units
     assert step.counts == {"targets.normal_device": 1, "boxes.instances": 8}
     assert frame.counts == {"boxes.instances": 8}
+    for u in toy_box_units:
+        assert sum(s.name == "boxes.compose" for s in u.spans) == 1
 
 
 def test_static_units_enter_no_box_span(toy_units):

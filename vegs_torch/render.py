@@ -10,12 +10,14 @@ A box field lives in its canonical unit box; `transform_field_arrays` maps
 it to the world with the frame's box-to-world transform (means transformed,
 rotation composed R_box @ R_gauss through quaternions, scales multiplied by
 the box's axis scales), after the learnable `BoxDeltas` residual is folded
-in (`boxmodel.adjust_box2world`). The parts are concatenated [static | box_0
-| box_1 | ...] in front of the same `rasterize`, so the kernels (K1-K4) see
-one field; `_bounds` gives each part's rows, so the means2d tap's gradient
-splits per part for the densify statistics. `_run` is the training step's
-entry: it renders prepared field arrays with a means2d gradient tap.
-`compose_boxes` moves the boxes under the span `boxes.compose`."""
+in (`boxmodel.adjust_box2world`). `compose_boxes` does that for every box
+of a call in one batched pass, under the span `boxes.compose`: the host's
+dispatch, not the rows, sets its cost. The parts are concatenated [static
+| box_0 | box_1 | ...] in front of the same `rasterize`, so the kernels
+(K1-K4) see one field; `_bounds` gives each part's rows, so the means2d
+tap's gradient splits per part for the densify statistics. `_run` is the
+training step's entry: it renders prepared field arrays with a means2d
+gradient tap."""
 
 from __future__ import annotations
 
@@ -47,16 +49,29 @@ def _as_cam_params(camera, device) -> CameraParams:
     return camera.device_params(device)
 
 
+# a field's raw (pre-activation) tensors, in GaussianField's order
+_RAW = ("means", "quats", "log_scales", "sh_dc", "sh_rest", "opacity_logit",
+       "valid")
+
+
+def _activate(means, quats, log_scales, sh_dc, sh_rest, opacity_logit,
+              valid, active_sh_degree) -> FieldArrays:
+    """The rasterizer's arrays from a field's raw rows, or from several
+    fields' rows concatenated: dead slots get exactly 0 opacity, SH
+    coefficients above the active degree 0."""
+    mask = sh_band_mask(active_sh_degree, device=means.device)[None, :, None]
+    quats = geometry.quat_normalize(quats)
+    scales = torch.exp(log_scales)
+    op = torch.sigmoid(opacity_logit)
+    opacities = torch.where(valid[:, None], op, torch.zeros_like(op))[:, 0]
+    return FieldArrays(means=means, quats=quats, scales=scales,
+                       opacities=opacities,
+                       shs=torch.cat([sh_dc, sh_rest], dim=1) * mask,
+                       valid=valid)
+
+
 def field_arrays(field: GaussianField, active_sh_degree: int = 3) -> FieldArrays:
-    mask = sh_band_mask(active_sh_degree, device=field.means.device)[None, :, None]
-    return FieldArrays(
-        means=field.means,
-        quats=field.rotations(),
-        scales=field.scales(),
-        opacities=field.opacities()[:, 0],
-        shs=field.features() * mask,
-        valid=field.valid,
-    )
+    return _activate(*(getattr(field, k) for k in _RAW), active_sh_degree)
 
 
 def _run(camera, arrays: FieldArrays, *, bg, scale_modifier, override_color,
@@ -114,17 +129,21 @@ def render(
 def transform_field_arrays(arrays: FieldArrays,
                            box2world: torch.Tensor) -> FieldArrays:
     """Apply a box-to-world (rotation * scale + translation) transform
-    [4, 4] to a canonical-space field's arrays."""
-    means_h = torch.cat([arrays.means,
-                         torch.ones((arrays.means.shape[0], 1),
-                                    dtype=arrays.means.dtype,
-                                    device=arrays.means.device)], dim=1)
-    means_w = (means_h @ box2world.T)[:, :3]
+    [4, 4] to a canonical-space field's arrays (rows [C, ...]); or, with
+    the rows grouped [G, C, ...], the transforms [G, 4, 4], one a group.
+    The means are moved elementwise, a fused multiply-add a column: a row
+    gets the same bits whether its transform is its group's or its own,
+    where a matrix product would take a 1x4-by-4x4 product a row."""
+    means, cols = arrays.means, box2world[..., None, :3, :]
+    means_w = means[..., :1] * cols[..., 0]
+    for k in (1, 2):
+        means_w = torch.addcmul(means_w, means[..., k:k + 1], cols[..., k])
+    means_w = means_w + cols[..., 3]
     R_box, S_box, _ = geometry.decompose_T_to_RS(box2world)
-    composed = R_box[None] @ geometry.quat_to_rotmat(arrays.quats)
+    composed = R_box[..., None, :, :] @ geometry.quat_to_rotmat(arrays.quats)
     return arrays._replace(means=means_w,
                            quats=geometry.rotmat_to_quat(composed),
-                           scales=arrays.scales * S_box[None, :])
+                           scales=arrays.scales * S_box[..., None, :])
 
 
 def _concat_arrays(parts: Sequence[FieldArrays]) -> FieldArrays:
@@ -143,21 +162,36 @@ class BoxInstance(NamedTuple):
     deltas: Optional[boxmodel.BoxDeltas] = None  # learnable residual
 
 
-def _box_arrays(box: BoxInstance, active_sh_degree) -> FieldArrays:
-    b2w = box.box2world
-    if box.deltas is not None:
-        b2w = boxmodel.adjust_box2world(b2w, box.deltas)
-    return transform_field_arrays(field_arrays(box.field, active_sh_degree), b2w)
+def _box2world(boxes: Sequence[BoxInstance]) -> torch.Tensor:
+    """[B, 4, 4]: the boxes' transforms with their residuals folded in, in
+    one batched `adjust_box2world`. A box without a residual takes the
+    identity, which leaves its matrix as it is to the bit."""
+    b2w = torch.stack([b.box2world for b in boxes])
+    if all(b.deltas is None for b in boxes):
+        return b2w
+    ds = [boxmodel.BoxDeltas.identity(b2w.device) if b.deltas is None
+          else b.deltas for b in boxes]
+    return boxmodel.adjust_box2world(b2w, boxmodel.BoxDeltas(**{
+        k: torch.stack([getattr(d, k) for d in ds])
+        for k in boxmodel.BoxDeltas.LEAVES}))
 
 
 def compose_boxes(boxes: Sequence[BoxInstance],
-                  active_sh_degree) -> list[FieldArrays]:
-    """Each box's arrays in the world (`_box_arrays`), under the span
-    `boxes.compose`, the boxes counted in `boxes.instances`. Callers call it
-    only where there are boxes."""
+                  active_sh_degree) -> FieldArrays:
+    """The boxes' arrays in the world, rows [box_0 | box_1 | ...], in one
+    batched pass under the span `boxes.compose`: the boxes' raw rows
+    activated at once under one SH mask, then each row moved by its box's
+    transform, expanded to the box's rows. The boxes are counted in
+    `boxes.instances`. Callers call it only where there are boxes."""
     with trace.span("boxes.compose"):
         trace.count("boxes.instances", len(boxes))
-        return [_box_arrays(b, active_sh_degree) for b in boxes]
+        b2w = torch.cat([m.expand(b.field.capacity, 4, 4)
+                         for m, b in zip(_box2world(boxes), boxes)])
+        arrays = _activate(*(torch.cat([getattr(b.field, k) for b in boxes])
+                             for k in _RAW), active_sh_degree)
+        world = transform_field_arrays(
+            FieldArrays(*(x[:, None] for x in arrays)), b2w)
+        return FieldArrays(*(x[:, 0] for x in world))
 
 
 def render_dyn(
@@ -174,7 +208,7 @@ def render_dyn(
     """The boxes only (default scale modifier 2.0). Returns (RasterOut,
     row boundaries [len(boxes) + 1] over the concatenated Gaussians)."""
     with trace.span("render.arrays"):
-        arrays = _concat_arrays(compose_boxes(boxes, active_sh_degree))
+        arrays = compose_boxes(boxes, active_sh_degree)
     out = _run(camera, arrays, bg=bg, scale_modifier=scale_modifier,
                override_color=None, sh_degree=sh_degree, config=config,
                means2d_offset=means2d_offset)
@@ -199,7 +233,7 @@ def render_all(
     with trace.span("render.arrays"):
         parts = [field_arrays(static_field, active_sh_degree)]
         if boxes:
-            parts += compose_boxes(boxes, active_sh_degree)
+            parts.append(compose_boxes(boxes, active_sh_degree))
         arrays = _concat_arrays(parts)
     out = _run(camera, arrays, bg=bg,
                scale_modifier=scale_modifier, override_color=None,

@@ -118,10 +118,11 @@ def _render_view(scene: Scene, cam_aug: Camera, boxes: dict,
         dev = scene.gaussians.means.device
         held = [(i, m) for i, m in boxes.items() if i in scene.box_gaussians]
         if held:
-            with trace.span("boxes.copy", sync=True):
-                instances = [BoxInstance(field=scene.box_gaussians[i],
-                                         box2world=_f32(box_matrix(m)).to(dev))
-                             for i, m in held]
+            with trace.span("boxes.copy", sync=True):  # one copy, [B, 4, 4]
+                b2w = _f32(np.stack([box_matrix(m) for _, m in held])).to(dev)
+            instances = [BoxInstance(field=scene.box_gaussians[i],
+                                     box2world=b2w[j])
+                         for j, (i, _) in enumerate(held)]
             out, _ = render_all(cam_aug, scene.gaussians, instances, bg=bg,
                                 config=raster_cfg)
             return out

@@ -112,7 +112,7 @@ def loss_fn(field: GaussianField, m2d_offset, cam: CameraParams, gt, normal,
     with trace.span("render.arrays"):
         parts = [field_arrays(field, active_sh_degree)]
         if boxes:
-            parts += compose_boxes(boxes, active_sh_degree)
+            parts.append(compose_boxes(boxes, active_sh_degree))
         arrays = _concat_arrays(parts)
     out = _run(cam, arrays, bg=bg, scale_modifier=1.0,
                override_color=None, sh_degree=sh_total_degree,
