@@ -494,10 +494,9 @@ def field_stage(field, cam, cfg, boxes=()):
     """`rasterize`'s stages before the blend of the field, and of the
     `boxes` (`BoxInstance`s) with it as `render_all` concatenates them."""
     from vegs_torch.ops.rasterize import stage
-    from vegs_torch.render import _concat_arrays, compose_boxes, field_arrays
+    from vegs_torch.render import frame_arrays
 
-    a = _concat_arrays([field_arrays(field)]
-                       + ([compose_boxes(boxes, 3)] if boxes else []))
+    a = frame_arrays(field, boxes, 3)
     return stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
                  valid=a.valid, config=cfg)
 
@@ -749,11 +748,10 @@ def staged_loss(field, tap, cam, gt, normal, sh_degree, bg, opt_cfg,
     from vegs_torch import boxmodel
     from vegs_torch.ops.blend_cuda import BlendFn
     from vegs_torch.ops.rasterize import raster_out, stage
-    from vegs_torch.render import _concat_arrays, compose_boxes, field_arrays
+    from vegs_torch.render import frame_arrays
     from vegs_torch.train import image_loss
 
-    a = _concat_arrays([field_arrays(field, sh_degree)]
-                       + ([compose_boxes(boxes, sh_degree)] if boxes else []))
+    a = frame_arrays(field, boxes, sh_degree)
     st = stage(a.means, a.quats, a.scales, a.opacities, a.shs, cam,
                sh_degree=3, valid=a.valid, means2d_offset=tap,
                config=raster_cfg)
@@ -1701,7 +1699,7 @@ def boxes_phase(dev, card) -> dict:
                                      dtype=torch.float32, device=dev)
             trainer.frame_deltas[(int(cam.frame), i)] = d
             trainer.frame_delta_opts[(int(cam.frame), i)] = \
-                optim.tensor_adam_init(d.as_dict())
+                optim.adam_init(d.as_dict())
 
     def delta_err():
         return float(torch.stack([d.delta_t.norm() for d in
@@ -3255,16 +3253,16 @@ def par_kernel_checks(plan, cam, gt, nm, cfg, opt_cfg, comm, arrays,
 
     import torch.distributed as dist
     from vegs_torch.parallel.tile_sharded import tile_render_local
-    from vegs_torch.parallel.tp_trainer import _image_loss, _whole_image
+    from vegs_torch.parallel.tp_trainer import _whole_image
+    from vegs_torch.train import image_loss
 
     rec = {}
     h, w = cam.height, cam.width
     bg = torch.zeros(3, device=gt.device)
     out_loc, _, _ = tile_render_local(plan, cam, cfg, 3, comm, *arrays,
                                       record=rec)
-    rgb, out = _whole_image(out_loc, comm, h, w, bg)
-    loss, _, nloss = _image_loss(rgb, out, gt, nm, opt_cfg, True, h, w)
-    loss = (loss + opt_cfg.lambda_dnormal * nloss) / comm.size
+    loss = image_loss(_whole_image(out_loc, comm, h, w, bg), gt, nm, 1.0,
+                      opt_cfg)[0] / comm.size
     dout, d_pf, d_pa = torch.autograd.grad(
         loss, [rec["blend_out"], *rec["gather_out"]])
     res = None
@@ -3755,17 +3753,15 @@ def tpq_after(mesh, scene, spec, last):
     rows at 32x64; ranks 2 and 3 own the grid's padding)."""
     if not spec.get("checks"):
         return None
-    from vegs_torch.boxmodel import adjust_box2world
+    from vegs_torch.boxmodel import BoxDeltas
     from vegs_torch.parallel.tile_sharded import make_tile_plan
     from vegs_torch.perf.quality_tp import opt_config
-    from vegs_torch.render import (_concat_arrays, field_arrays,
-                                   transform_field_arrays)
+    from vegs_torch.render import BoxInstance, frame_arrays
 
     comm = mesh.comm()
-    b2w = adjust_box2world(last["b2w"], last["deltas"])[0].detach()
-    arrays = _concat_arrays([
-        field_arrays(last["field"], 3),
-        transform_field_arrays(field_arrays(last["bfield"], 3), b2w)])
+    box = BoxInstance(last["bfield"], last["b2w"][0], BoxDeltas(
+        **{k: v[0] for k, v in last["deltas"].as_dict().items()}))
+    arrays = frame_arrays(last["field"], [box], 3)
     cam, cfg = last["cam"], last["raster"]
     return par_kernel_checks(make_tile_plan(comm.size, cam, cfg), cam,
                              last["gt"], last["normal"], cfg, opt_config(),

@@ -3,8 +3,9 @@
   * `boxmodel`: d_box2world, adjust_box2world, regularize_loss and
     delta_magnitudes within 1e-6; `safe_norm` has a finite zero gradient
     at 0 and the exact one elsewhere (tests/test_train_core.py:238).
-  * `optim`: `field_lrs(xyz_lr_mult=)` and `tensor_adam_step` over three
-    steps within 1e-6 (eps 1e-8, not the field Adam's 1e-15).
+  * `optim`: `field_lrs(xyz_lr_mult=)`, and `adam_step` on a BoxDeltas
+    in place over three steps against JAX's `tensor_adam_step` within 1e-6
+    (eps 1e-8, not the field Adam's 1e-15).
   * `render.compose_boxes`' one batched pass against each box composed
     alone (`transform_field_arrays` of its `field_arrays` at its
     residual-adjusted transform), for three boxes of equal and of unequal
@@ -27,7 +28,8 @@
     package's; `Scene.save` writes the static and per-instance PLYs,
     which load back; the synthetic mover, ray tracer and normal maps equal
     the JAX package's to the bit (tests/test_scene.py:266).
-  * `convert`: BoxDeltas, tensor Adam and a Trainer's box state round-trip.
+  * `convert`: BoxDeltas, a residual's Adam state and a Trainer's box
+    state round-trip.
 """
 
 import jax
@@ -302,19 +304,19 @@ def test_box_lrs_and_tensor_adam_match_jax():
     p = _deltas_np(rng)
     jp, js = ({k: jnp.asarray(v) for k, v in p.items()},
               joptim.tensor_adam_init({k: jnp.asarray(v) for k, v in p.items()}))
-    tp, ts = {k: _t(v) for k, v in p.items()}, toptim.tensor_adam_init(
-        {k: _t(v) for k, v in p.items()})
+    tp = tbox.BoxDeltas(**{k: _t(v) for k, v in p.items()})
+    ts = toptim.adam_init(tp.as_dict())
     for _ in range(3):
         g = {k: rng.normal(0, 1e-3, v.shape).astype(np.float32)
              for k, v in p.items()}
         jp, js = joptim.tensor_adam_step(
             jp, {k: jnp.asarray(v) for k, v in g.items()}, js, 5e-3)
-        tp, ts = toptim.tensor_adam_step(tp, {k: _t(v) for k, v in g.items()},
-                                         ts, 5e-3)
-    assert int(ts.count) == int(js.count) == 3
+        toptim.adam_step(tp, {k: _t(v) for k, v in g.items()}, ts, 5e-3,
+                         eps=1e-8)
+    assert int(ts["count"]) == int(js.count) == 3
     for k in p:
-        for got, want in ((tp[k], jp[k]), (ts.mu[k], js.mu[k]),
-                          (ts.nu[k], js.nu[k])):
+        for got, want in ((getattr(tp, k), jp[k]), (ts["mu"][k], js.mu[k]),
+                          (ts["nu"][k], js.nu[k])):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                        atol=1e-6, err_msg=k)
 
@@ -392,7 +394,7 @@ def test_box_deltas_unfreeze_from_identity():
         boxes=[BoxStep(field=tbf, opt=toptim.adam_init(tbf),
                        stats=DensifyStats.zeros(64, "cpu"),
                        box2world=_t(b2w), deltas=ident,
-                       delta_opt=toptim.tensor_adam_init(ident.as_dict()))],
+                       delta_opt=toptim.adam_init(ident.as_dict()))],
         box_cfg=box_cfg)
     np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
                                rtol=1e-5)
@@ -403,10 +405,10 @@ def test_box_deltas_unfreeze_from_identity():
                                    np.asarray(getattr(jdl, k))[0], rtol=0,
                                    atol=1e-5, err_msg=k)
         for m in ("mu", "nu"):
-            np.testing.assert_allclose(getattr(b.delta_opt, m)[k].numpy(),
+            np.testing.assert_allclose(b.delta_opt[m][k].numpy(),
                                        np.asarray(getattr(jdo2, m)[k])[0],
                                        rtol=0, atol=1e-5, err_msg=f"{m} {k}")
-    assert int(b.delta_opt.count) == 1
+    assert int(b.delta_opt["count"]) == 1
 
 
 def _tcam_of(cam, h, w):

@@ -188,7 +188,7 @@ def box_steps():
             field=bf, opt=optim.adam_init(bf),
             stats=DensifyStats.zeros(bf.capacity, CPU),
             box2world=torch.tensor(poses[frame][i], dtype=torch.float32),
-            deltas=dl, delta_opt=optim.tensor_adam_init(dl.as_dict())))
+            deltas=dl, delta_opt=optim.adam_init(dl.as_dict())))
     n = bins[0].means.shape[0]
     before = [{k: getattr(b.field, k).detach()[:n].clone() for k in rt.LEAVES}
               for b in steps]
@@ -211,7 +211,7 @@ def box_steps():
                                          for b in steps]
             for k in BoxDeltas.LEAVES:
                 # a first Adam step's moment is (1 - beta1) g
-                prog["grad.delta." + k] = [b.delta_opt.mu[k] / 0.1
+                prog["grad.delta." + k] = [b.delta_opt["mu"][k] / 0.1
                                            for b in steps]
     for k in rt.LEAVES:
         prog["change.box." + k] = [getattr(b.field, k).detach()[:n] - p[k]

@@ -8,7 +8,8 @@ reads the scene first and alone writes the PLYs, cfg_args.json and
 metrics.jsonl. The multi-host way in (`--coordinator_address tcp://...
 --num_processes 2 --process_id i`, `parallel.mesh.initialize_distributed`)
 runs as two CPU processes started here, each with the intra-op threads a
-spawned rank gets; their PLYs are held against `--data_parallel 2`'s to
+spawned rank gets, on a localhost port found free (on another if rank 0
+finds it taken); their PLYs are held against `--data_parallel 2`'s to
 the bit (the same ranks' code in the same order). The JAX CLI runs its
 shard_map step on 2 of the virtual CPU devices (tests/conftest.py).
 Tolerance against JAX: every column of the final static and instance PLYs
@@ -20,6 +21,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -90,9 +92,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_main_multi_host_matches_data_parallel(runs):
-    """Two processes, one rank each, meeting over TCP on localhost."""
-    _, base = runs
+# the two processes take ~5 s alone, ~20 s beside the rest of the suite
+# under `-n 6`, and ~200 s with the host's cores three times oversubscribed
+TIMEOUT_S = 600
+
+
+def _multi_host(base, model_path) -> list:
+    """Rank 0 and rank 1 of `main` as two processes on a port found free
+    -> [(return code, output)]; a process that fails stops the other."""
     addr = f"tcp://127.0.0.1:{_free_port()}"
     threads = max(1, (os.cpu_count() or 1) // 2)
     code = ("import sys, torch; torch.set_num_threads(int(sys.argv[1])); "
@@ -100,27 +107,47 @@ def test_main_multi_host_matches_data_parallel(runs):
             "main(sys.argv[2:], device='cpu')")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]))
     env.pop("VEGS_SD_CHECKPOINT", None)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(threads),
-         *_argv(base / "root", base / "multihost", "--coordinator_address",
-                addr, "--num_processes", "2", "--process_id", str(i))],
-        cwd=base, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for i in range(2)]
-    outs = []
+    logs = [base / f"{model_path.name}.{i}.log" for i in range(2)]
+    procs = []
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
+        for i, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(threads),
+                     *_argv(base / "root", model_path, "--coordinator_address",
+                            addr, "--num_processes", "2", "--process_id",
+                            str(i))],
+                    cwd=base, env=env, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TIMEOUT_S
+        while (time.monotonic() < deadline
+               and any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for i, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i}:\n{o[-3000:]}"
+            p.wait()
+    return [(p.returncode, log.read_text()) for p, log in zip(procs, logs)]
+
+
+def test_main_multi_host_matches_data_parallel(runs):
+    """Two processes, one rank each, meeting over TCP on localhost."""
+    _, base = runs
+    for attempt in range(3):
+        # another process may bind the port between `_free_port` and rank
+        # 0's bind: start again on another port
+        model_path = base / f"multihost{attempt}"
+        res = _multi_host(base, model_path)
+        if not any(rc and "EADDRINUSE" in out for rc, out in res):
+            break
+    for i, (rc, out) in enumerate(res):
+        assert rc == 0, f"process {i}:\n{out[-3000:]}"
     rel = [Path("point_cloud") / f"iteration_{ITERS}" / "point_cloud.ply",
            Path(f"instance_{CAR}") / "point_cloud" / f"iteration_{ITERS}"
            / "point_cloud.ply"]
     for r in rel:
-        got, want = _ply(base / "multihost" / r), _ply(base / "port" / r)
+        got, want = _ply(model_path / r), _ply(base / "port" / r)
         assert sorted(got) == sorted(want)
         for col in want:
             np.testing.assert_array_equal(got[col], want[col],

@@ -1,18 +1,18 @@
-"""The port's data-parallel training (vegs_torch.parallel.sharded_step, the
-`comm=` path of vegs_torch.train.train_step, Trainer(dp_devices=2)) against
-vegs_tpu's on a 2-device mesh of tests/conftest.py's virtual CPU devices.
-The port runs 2 gloo ranks in one spawn (bodies:
-tests/torch_parallel_workers.py `dp_steps`).
+"""The port's data-parallel training (the `comm=` path of
+vegs_torch.train.train_step, the port's one data-parallel step, and
+Trainer(dp_devices=2)) against vegs_tpu's on a 2-device mesh of
+tests/conftest.py's virtual CPU devices. The port runs 2 gloo ranks in one
+spawn (bodies: tests/torch_parallel_workers.py `dp_steps`).
 
-  * `make_dp_train_step` (one camera a rank, f32 aux, normal loss on)
-    against JAX's: loss rtol 1e-5, Adam's first moments (0.1 x the averaged
-    gradient) within 5e-4 of each leaf's max |mu| + 1e-10 (float32 sums in
-    another order; the sharded steps read up to 1.2e-4; an isotropic
-    Gaussian's rotation gradient is zero up to ~1e-9 of noise), parameters
-    within
-    1e-5 + 2e-4 |x| (the first Adam step is ~lr sign(g): near-zero
-    gradients can flip, bounded by 2 lr of the leaf on at most 1% of
-    entries), densify counts and radii exact, norm sums rtol 1e-4.
+  * the static step, `train_step(comm=)` (one camera a rank, f32 aux,
+    normal loss on), against JAX's `make_dp_train_step`: loss rtol 1e-5,
+    Adam's first moments (0.1 x the averaged gradient) within 5e-4 of each
+    leaf's max |mu| + 1e-10 (float32 sums in another order; the sharded
+    steps read up to 1.2e-4; an isotropic Gaussian's rotation gradient is
+    zero up to ~1e-9 of noise), parameters within 1e-5 + 2e-4 |x| (the
+    first Adam step is ~lr sign(g): near-zero gradients can flip, bounded
+    by 2 lr of the leaf on at most 1% of entries), densify counts and
+    radii exact, norm sums rtol 1e-4.
   * the full step with 2 box slots, box 1 in rank 0's frame only (it then
     averages over 1 rank, box 0 over 2; vegs_tpu/train.py:300-305),
     against `make_train_step(mesh=)`: the same bounds on the static and box

@@ -120,7 +120,11 @@ def capped(fn, cap):
 def test_r05_k_cap_sizing_matches_jax(tmp_path, monkeypatch, capsys):
     import vegs_tpu.ops.rasterize as jr
 
-    mod = load("r05_tiles", tmp_path, H=H, W=W, N=N, K_CAP=CAP, ITERS=1)
+    # a monotone clock whose steps grow, so the script's timing difference
+    # is positive under any load (the sizing it prints does not read it)
+    ticks = iter(float(i * i) for i in range(1, 1 << 20))
+    mod = load("r05_tiles", tmp_path, H=H, W=W, N=N, K_CAP=CAP, ITERS=1,
+               time=types.SimpleNamespace(time=lambda: next(ticks)))
 
     def fake(m, q, s, o, sh, cam, bg=None, config=None):
         z = jnp.sum(m) * 0.0

@@ -176,8 +176,6 @@ def state_tensors(field, opt) -> list:
 def dp_steps(rank: int, path: str) -> dict:
     from vegs_torch.boxmodel import BoxDeltas
     from vegs_torch.config import ModelParams, VegsConfig
-    from vegs_torch.parallel.sharded_step import (make_dp_train_step,
-                                                  stack_camera_batch)
     from vegs_torch.scene import Scene, dataset_readers
     from vegs_torch.train import BoxStep, TrainState, Trainer, train_step
 
@@ -185,25 +183,23 @@ def dp_steps(rank: int, path: str) -> dict:
     comm = make_mesh().comm()
     out = {}
 
-    # (a) the static DP step
+    # (a) the static DP step: train_step with this rank's camera
     a = inp["dp"]
     field = convert.field_from_numpy(a["field"], device="cpu")
-    opt = optim.adam_init(field)
-    stats = DensifyStats.zeros(field.capacity, "cpu")
+    state = TrainState(field=field, opt=optim.adam_init(field),
+                       stats=DensifyStats.zeros(field.capacity, "cpu"), step=0)
     cfg = VegsConfig()
     raster = RasterizeConfig(k_cap=a["k_cap"], payload_dtype="f32")
-    step = make_dp_train_step(make_mesh(), cfg.opt, raster, 4.0, a["h"],
-                              a["w"], use_normal_loss=True)
-    batch = stack_camera_batch([camera(c) for c in a["cams"]])
-    f2, o2, s2, n2, m = step(field, opt, stats, 0, batch,
-                             torch.from_numpy(a["gt"]),
-                             torch.from_numpy(a["normal"]), 3,
-                             torch.tensor(a["bg"]))
-    out["dp"] = {"field": field_numpy(f2), "opt": adam_numpy(o2),
-                 "stats": stats_numpy(s2), "step": n2,
+    state, m, _ = train_step(
+        state, camera(a["cams"][rank]), torch.from_numpy(a["gt"][rank]),
+        torch.from_numpy(a["normal"][rank]), 1.0, 3, torch.tensor(a["bg"]),
+        opt_cfg=cfg.opt, raster_cfg=raster, spatial_scale=4.0, comm=comm)
+    out["dp"] = {"field": field_numpy(state.field),
+                 "opt": adam_numpy(state.opt),
+                 "stats": stats_numpy(state.stats), "step": state.step,
                  "loss": float(m["loss"]), "l1": float(m["l1"]),
-                 "checksums": replicated_checksums(comm,
-                                                   state_tensors(f2, o2))}
+                 "checksums": replicated_checksums(
+                     comm, state_tensors(state.field, state.opt))}
 
     # (b) the full-model step, data parallel, with box slots
     b = inp["box"]
@@ -218,7 +214,7 @@ def dp_steps(rank: int, path: str) -> dict:
             field=bfield, opt=optim.adam_init(bfield),
             stats=DensifyStats.zeros(bfield.capacity, "cpu"),
             box2world=torch.from_numpy(b["b2w"][rank, i]), deltas=d,
-            delta_opt=optim.tensor_adam_init(d.as_dict()),
+            delta_opt=optim.adam_init(d.as_dict()),
             active=bool(b["active"][rank, i])))
     state, m, stepped = train_step(
         state, camera(b["cams"][rank]), torch.from_numpy(b["gt"][rank]),
@@ -347,7 +343,7 @@ def tp_steps(rank: int, path: str) -> dict:
         boxmodel_lr=cfg.box.boxmodel_lr,
         boxmodel_lambda_reg=cfg.box.boxmodel_lambda_reg)
     res = step(f, o, s, 0, bfields, bopts, bstats, deltas,
-               optim.tensor_adam_init(deltas.as_dict()),
+               optim.adam_init(deltas.as_dict()),
                torch.from_numpy(b["b2w"]), torch.from_numpy(b["active"]),
                cam, torch.from_numpy(a["gt"]), torch.from_numpy(a["normal"]),
                1.0, 3, torch.tensor(a["bg"]))
@@ -521,7 +517,7 @@ def tp_full_extras(rank: int, path: str) -> dict:
         spatial_scale=4.0, boxes=[BoxStep(
             field=b1, opt=optim.adam_init(b1),
             stats=DensifyStats.zeros(b1.capacity, "cpu"), box2world=b2w,
-            deltas=d1, delta_opt=optim.tensor_adam_init(d1.as_dict()))],
+            deltas=d1, delta_opt=optim.adam_init(d1.as_dict()))],
         box_cfg=cfg.box, guidance=guided, perceptual=Perceptual(vgg, lam))
 
     # the TP-full step on this rank's rows
@@ -539,7 +535,7 @@ def tp_full_extras(rank: int, path: str) -> dict:
     res = step(fs, optim.adam_init(fs), DensifyStats.zeros(fs.capacity, "cpu"),
                0, [bs], [optim.adam_init(bs)],
                [DensifyStats.zeros(bs.capacity, "cpu")], deltas,
-               optim.tensor_adam_init(deltas.as_dict()), b2w[None],
+               optim.adam_init(deltas.as_dict()), b2w[None],
                torch.tensor([True]), cam, gt, nm, 1.0, 3, bg,
                extras={"guided": guided, "vgg": vgg})
     fo, m = res[1], res[-1]

@@ -8,7 +8,7 @@ delta_t translation) right-multiplies it:
     adjust_box2world = box2world @ [diag(delta_s) @ R(delta_r) | delta_t]
 
 and an L2 pull toward identity regularizes the deltas each step. Their
-Adam is `vegs_torch.optim.tensor_adam_*`.
+Adam is the fields' `vegs_torch.optim.adam_step`, in place, with eps 1e-8.
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ from . import config as config_lib, resolve_device
 from .boxmodel import BoxDeltas
 from .gaussians import DensifyStats, GaussianField
 from .ops.projection import CameraParams
-from .optim import PARAM_LEAVES, TensorAdamState
+from .optim import PARAM_LEAVES, AdamState
 
 FIELD_KEYS = ("means", "quats", "log_scales", "sh_dc", "sh_rest",
               "opacity_logit", "valid")
@@ -154,26 +154,28 @@ def box_deltas_to_numpy(deltas: BoxDeltas) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in deltas.as_dict().items()}
 
 
-def tensor_adam_from_numpy(arrays: dict, device=None) -> TensorAdamState:
-    """{"mu": {name: array}, "nu": {name: array}, "count"} (the JAX
-    TensorAdamState's leaves) -> TensorAdamState (count on the CPU)."""
+def tensor_adam_from_numpy(arrays: dict, device=None) -> AdamState:
+    """{"mu": {name: array}, "nu": {name: array}, "count"} (the leaves of
+    the JAX package's box-residual Adam state) -> the port's Adam state of
+    those leaves (`optim.AdamState`, count on the CPU)."""
     dev = resolve_device(device)
 
     def t(d):
         return {k: torch.from_numpy(np.array(v, np.float32, copy=True)).to(dev)
                 for k, v in d.items()}
 
-    return TensorAdamState(mu=t(arrays["mu"]), nu=t(arrays["nu"]),
-                           count=torch.tensor(int(arrays["count"]),
-                                              dtype=torch.int32))
+    return AdamState(mu=t(arrays["mu"]), nu=t(arrays["nu"]),
+                     count=torch.tensor(int(arrays["count"]),
+                                        dtype=torch.int32))
 
 
-def tensor_adam_to_numpy(state: TensorAdamState) -> dict:
+def tensor_adam_to_numpy(state: AdamState) -> dict:
     """Inverse of `tensor_adam_from_numpy`."""
     def n(d):
         return {k: v.detach().cpu().numpy() for k, v in d.items()}
 
-    return {"mu": n(state.mu), "nu": n(state.nu), "count": int(state.count)}
+    return {"mu": n(state["mu"]), "nu": n(state["nu"]),
+            "count": int(state["count"])}
 
 
 BOX_STATE_KEYS = ("box_fields", "box_opts", "box_stats", "frame_deltas",

@@ -1,25 +1,25 @@
 """Per-leaf Adam with the 3DGS learning-rate policy (port of
 vegs_tpu/optim.py).
 
-The Adam state is a plain dict of tensors, {"mu": {leaf: tensor}, "nu":
-{leaf: tensor}, "count": int32 tensor}, row-aligned with the field, as in
-the JAX package: densification recompacts parameters and moments row for
-row (vegs_torch.densify), which `torch.optim.Adam`'s per-parameter state
-does not allow.
+The Adam state is a dict of tensors, {"mu": {leaf: tensor}, "nu": {leaf:
+tensor}, "count": int32 tensor}, row-aligned with the field, as in the JAX
+package: densification recompacts parameters and moments row for row
+(vegs_torch.densify), which `torch.optim.Adam`'s per-parameter state does
+not allow. One update, `adam_step`, steps every part of a training step in
+place: the static field and each box field with the reference's eps 1e-15,
+each (frame, instance) box residual (`boxmodel.BoxDeltas`, one learning
+rate for its three leaves) with eps 1e-8, as the JAX package steps
+them.
 
 Learning rates (the reference's training_setup):
   means:   position_lr_init * spatial_scale, exp-decayed to position_lr_final
            * spatial_scale over position_lr_max_steps (log-lerp with delay)
   sh_dc:   feature_lr;  sh_rest: feature_lr / 20
   opacity: opacity_lr;  log_scales: scaling_lr;  quats: rotation_lr
-
-`tensor_adam_*` is a plain Adam over a dict of small tensors (the box
-deltas), with eps 1e-8 where the field's Adam uses the reference's 1e-15.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import NamedTuple
 
@@ -80,35 +80,52 @@ def field_lrs(opt: OptimizationParams, spatial_scale: float,
     )
 
 
-def adam_init(field) -> dict:
-    """Zero moments for the six parameter leaves of `field`."""
-    def zeros():
-        return {k: torch.zeros_like(getattr(field, k).detach())
-                for k in PARAM_LEAVES}
+class AdamState(dict):
+    """{"mu": {leaf: tensor}, "nu": {leaf: tensor}, "count": int32 tensor
+    on the CPU, so the bias corrections need no read from the card}; the
+    entries read also as attributes (`state.mu`)."""
 
-    return {"mu": zeros(), "nu": zeros(),
-            "count": torch.zeros((), dtype=torch.int32)}
+    mu = property(lambda self: self["mu"])
+    nu = property(lambda self: self["nu"])
+    count = property(lambda self: self["count"])
+
+
+def adam_init(params) -> AdamState:
+    """Zero moments for each leaf of `params`: a dict of tensors, or a
+    GaussianField's six parameter leaves."""
+    if not isinstance(params, dict):
+        params = {k: getattr(params, k) for k in PARAM_LEAVES}
+
+    def zeros():
+        return {k: torch.zeros_like(v.detach()) for k, v in params.items()}
+
+    return AdamState(mu=zeros(), nu=zeros(),
+                     count=torch.zeros((), dtype=torch.int32))
 
 
 @torch.no_grad()
-def adam_step(field, grads: dict, state: dict, lrs: FieldLRs,
+def adam_step(params, grads: dict, state: dict, lrs,
               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15) -> None:
-    """One Adam update of the six parameter leaves, IN PLACE: the field's
-    parameters and the state's moments and count are updated where they lie
-    (the JAX package returns new arrays; in place saves a copy of the field
-    and both moments per step). eps is the reference's 1e-15."""
+    """One Adam update of the leaves that `grads` names, IN PLACE: the
+    leaves (attributes of `params`: a GaussianField's parameters, a
+    BoxDeltas' residual) and the state's moments and count are updated
+    where they lie (the JAX package returns new arrays; in place saves a
+    copy of the field and both moments per step). `lrs` is each leaf's rate
+    (`FieldLRs`) or one rate for every leaf. eps: the reference's 1e-15 for
+    a field, 1e-8 for a box residual. Bias corrections in float32, as the
+    JAX package computes them."""
+    rates = (lrs._asdict() if isinstance(lrs, FieldLRs)
+             else dict.fromkeys(grads, lrs))
     count = state["count"] + 1
-    # bias corrections in float32, as the JAX package computes them
     c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
     c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
-    for name, lr in zip(PARAM_LEAVES, lrs):
-        p = getattr(field, name)
-        g = grads[name]
+    for name, g in grads.items():
+        p = getattr(params, name)
         m = state["mu"][name]
         v = state["nu"][name]
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * (g * g))
-        p.sub_(lr * (m / c1) / (torch.sqrt(v / c2) + eps))
+        p.sub_(rates[name] * (m / c1) / (torch.sqrt(v / c2) + eps))
     state["count"] = count
 
 
@@ -118,38 +135,3 @@ def leaf_grads(field) -> dict:
     return {k: torch.zeros_like(getattr(field, k))
             if getattr(field, k).grad is None else getattr(field, k).grad
             for k in PARAM_LEAVES}
-
-
-@dataclasses.dataclass
-class TensorAdamState:
-    """Adam moments of a dict of tensors, and the step count (an int32
-    tensor on the CPU, so the bias corrections need no read from the card)."""
-
-    mu: dict
-    nu: dict
-    count: torch.Tensor
-
-
-def tensor_adam_init(params: dict) -> TensorAdamState:
-    return TensorAdamState(
-        mu={k: torch.zeros_like(v) for k, v in params.items()},
-        nu={k: torch.zeros_like(v) for k, v in params.items()},
-        count=torch.zeros((), dtype=torch.int32))
-
-
-@torch.no_grad()
-def tensor_adam_step(params: dict, grads: dict, state: TensorAdamState, lr,
-                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-    """One Adam update -> (new params dict, new TensorAdamState); the
-    inputs are left as they were. Bias corrections in float32, as the JAX
-    package computes them."""
-    count = state.count + 1
-    c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
-    c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
-    new_p, mu, nu = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k]
-        mu[k] = b1 * state.mu[k] + (1 - b1) * g
-        nu[k] = b2 * state.nu[k] + (1 - b2) * g * g
-        new_p[k] = p - lr * (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
-    return new_p, TensorAdamState(mu=mu, nu=nu, count=count)

@@ -6,8 +6,9 @@ per rank across hosts), and rank r does what device r of the JAX mesh does.
 Every collective is explicit (`comm`), on an axis of a `mesh.Mesh` of
 process groups:
 
-  * data parallel -- `sharded_step.make_dp_train_step`, and the full
-    model's step and Trainer in `vegs_torch.train` (`comm=`, `dp_devices=`);
+  * data parallel -- `vegs_torch.train.train_step(comm=...)`, the one
+    step of the static field and the full model, and the Trainer that
+    runs it (`dp_devices=`); `sharded_step` stacks a camera batch;
   * Gaussian-axis sharding -- `gauss_sharded`;
   * tile-axis sharding with an all-to-all splat exchange -- `tile_sharded`;
   * the fully sharded trainer, with its 2-D data x shard hybrid --
@@ -21,4 +22,3 @@ the one way to run two ranks on one card).
 from .gauss_sharded import (  # noqa: F401
     make_gauss_mesh, make_gauss_sharded_rasterize, shard_field_arrays)
 from .mesh import make_mesh  # noqa: F401
-from .sharded_step import make_dp_train_step  # noqa: F401

@@ -1,10 +1,10 @@
 """Scaling benchmark: rays/s at each rank count (port of
 vegs_tpu/parallel/bench_scaling.py).
 
-`run` times the static data-parallel step (`sharded_step`) with one camera
-a rank on an orbit around a seeded field; `run_tile` times the
-tile-sharded render's forward and backward of ONE image split over the
-ranks. Each rank count is one `launch.spawn` of that many ranks: NCCL, one
+`run` times the static data-parallel step (`train.train_step` with a
+`comm`) with one camera a rank on an orbit around a seeded field;
+`run_tile` times the tile-sharded render's forward and backward of ONE
+image split over the ranks. Each rank count is one `launch.spawn` of that many ranks: NCCL, one
 rank per card, on the card (a count above the cards is skipped, as the JAX
 benchmark skips counts above its devices), unless the caller passes
 `backend="gloo"`, which stages every collective through the host
@@ -78,8 +78,8 @@ def _dp_rank(rank, n, height, width, iters, device_type, backend, k_cap):
     from ..gaussians import DensifyStats, create_from_points
     from ..ops.rasterize import RasterizeConfig
     from .. import optim
+    from ..train import TrainState, train_step
     from .mesh import make_mesh
-    from .sharded_step import make_dp_train_step, stack_camera_batch
 
     dev = _rank_device(rank, device_type, backend)
     D = dist.get_world_size()
@@ -88,16 +88,17 @@ def _dp_rank(rank, n, height, width, iters, device_type, backend, k_cap):
     pts[:, 2] = np.abs(pts[:, 2]) + 2
     cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     field = create_from_points(pts, cols, device=dev)
-    opt, stats = optim.adam_init(field), DensifyStats.zeros(field.capacity,
-                                                            dev)
-    cams = stack_camera_batch([orbit_camera(height, width, 2 * np.pi * i / D,
-                                            dev, distance=10.0)
-                               for i in range(D)])
-    step = make_dp_train_step(make_mesh(), OptimizationParams(),
-                              RasterizeConfig(k_cap=k_cap), 8.0, height, width)
-    gt = torch.zeros((D, 3, height, width), device=dev)
+    state = TrainState(field=field, opt=optim.adam_init(field),
+                       stats=DensifyStats.zeros(field.capacity, dev), step=0)
+    cam = orbit_camera(height, width, 2 * np.pi * rank / D, dev,
+                       distance=10.0)
+    gt = torch.zeros((3, height, width), device=dev)
     bg = torch.zeros(3, device=dev)
-    sec = _timed(lambda: step(field, opt, stats, 0, cams, gt, gt, 3, bg),
+    opt_cfg, raster = OptimizationParams(), RasterizeConfig(k_cap=k_cap)
+    comm = make_mesh().comm()
+    sec = _timed(lambda: train_step(state, cam, gt, gt, 0.0, 3, bg,
+                                    opt_cfg=opt_cfg, raster_cfg=raster,
+                                    spatial_scale=8.0, comm=comm),
                  iters, dev)
     return {"sec_per_step": sec,
             "transport": make_mesh().comm().transport(dev)}

@@ -55,7 +55,7 @@ def _rank(rank: int, device_type: str) -> dict:
         boxes.append(BoxStep(field=bf, opt=optim.adam_init(bf),
                              stats=DensifyStats.zeros(64, dev), box2world=b2w,
                              deltas=d,
-                             delta_opt=optim.tensor_adam_init(d.as_dict())))
+                             delta_opt=optim.adam_init(d.as_dict())))
     cam = orbit_camera(h, w, 2 * np.pi * rank / D, dev)
     gt = torch.zeros((3, h, w), device=dev)
     cfg = VegsConfig()

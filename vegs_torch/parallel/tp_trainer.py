@@ -27,18 +27,17 @@ row-local.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from .. import densify, optim
-from ..boxmodel import BoxDeltas, adjust_box2world, regularize_loss
+from .. import densify, optim, train
+from ..boxmodel import BoxDeltas, regularize_loss
 from ..gaussians import DensifyStats, GaussianField, round_capacity
-from ..losses import l1_loss, loss_normal_guidance, ssim
 from ..ops import blend_ref
 from ..ops.projection import CameraParams
 from ..ops.rasterize import RasterizeConfig
-from ..render import _concat_arrays, field_arrays, transform_field_arrays
+from ..render import BoxInstance, field_arrays, frame_arrays
 from .comm import all_gather, pmax, pmax_tree, psum, psum_mean, psum_tree
 from .gauss_sharded import shard_rows
 from .mesh import Mesh, make_grid_mesh
@@ -112,22 +111,20 @@ def _zero_grads(*fields) -> None:
             p.grad = None
 
 
-def _whole_image(out_loc, comm, H, W, bg):
-    """(rgb, full [12, ., .]) of the gathered tile rows."""
+class WholeImage(NamedTuple):
+    """The gathered tile rows' maps that `train.image_loss` scores."""
+
+    rgb: torch.Tensor        # [3, H, W] over the background
+    cov_quat: torch.Tensor   # [4, H, W]
+    cov_scale: torch.Tensor  # [3, H, W]
+
+
+def _whole_image(out_loc, comm, H, W, bg) -> WholeImage:
+    """The image of the gathered tile rows."""
     out = all_gather(out_loc, comm, dim=1)
     t_fin = out[blend_ref.N_ACCUM, :H, :W]
-    return out[0:3, :H, :W] + t_fin[None] * bg[:, None, None], out
-
-
-def _image_loss(rgb, out, gt, normal, opt_cfg, use_normal_loss, H, W):
-    ll1 = l1_loss(rgb, gt)
-    lam = opt_cfg.lambda_dssim
-    loss = (1 - lam) * ll1 + lam * (1.0 - ssim(rgb, gt))
-    nloss = torch.zeros((), device=rgb.device)
-    if use_normal_loss:
-        nloss = loss_normal_guidance(out[4:8, :H, :W], out[8:11, :H, :W],
-                                     normal)
-    return loss, ll1, nloss
+    return WholeImage(rgb=out[0:3, :H, :W] + t_fin[None] * bg[:, None, None],
+                      cov_quat=out[4:8, :H, :W], cov_scale=out[8:11, :H, :W])
 
 
 def _static_sharded_step(plan, shard, data, opt_cfg, raster_cfg,
@@ -145,10 +142,9 @@ def _static_sharded_step(plan, shard, data, opt_cfg, raster_cfg,
         out_loc, proj, (dropped, needed, needed_ex) = tile_render_local(
             plan, cam, raster_cfg, sh_total_degree, shard, *a,
             means2d_offset=m2d)
-        rgb, out = _whole_image(out_loc, shard, H, W, bg)
-        loss, ll1, nloss = _image_loss(rgb, out, gt, normal, opt_cfg,
-                                       use_normal_loss, H, W)
-        loss = loss + opt_cfg.lambda_dnormal * nloss
+        loss, ll1, _ = train.image_loss(
+            _whole_image(out_loc, shard, H, W, bg), gt, normal,
+            float(use_normal_loss), opt_cfg)
         # every shard takes the same loss: the gather's backward sums the
         # n_shard copies, so differentiate loss / n_shard (densify's
         # absolute thresholds must not inflate)
@@ -278,13 +274,16 @@ def make_tp_full_train_step(mesh: Mesh, opt_cfg, raster_cfg: RasterizeConfig,
 
     box_fields, box_opts and box_stats are lists of n_box_slots (this
     rank's row block of each slot); deltas a BoxDeltas with leaves [S, .]
-    and delta_opt its TensorAdamState, the same on every rank; box2worlds
-    [S, 4, 4] and active [S] bool. Fields and Adam states are updated in
+    and delta_opt its Adam state (`optim.adam_init`), the same on every
+    rank; box2worlds [S, 4, 4] and active [S] bool. The slots are composed
+    as `render.frame_arrays` composes a frame's boxes, an inactive slot's
+    rows masked out. Fields, residuals and their Adam states are updated in
     place. The residuals' gradients are summed over the axis (each rank
     holds its own rows' share, and 1/D of the regularizer) and NaN-guarded,
     so their Adam step stays the same on every rank; an inactive slot's
-    field, moments and residual keep their values, its Adam count still
-    advances, as in the JAX step. Box learning rates take no spatial scale.
+    field keeps its values and moments, and its residual its values, while
+    the residual's moments and every Adam count advance, as in the JAX
+    step. Box learning rates take no spatial scale.
 
     With `guidance` (an `SDGuidance`; `aug_cam` the augmented view's shape
     template) `extras` carries "guided" (a `train.GuidedView` of the
@@ -303,36 +302,34 @@ def make_tp_full_train_step(mesh: Mesh, opt_cfg, raster_cfg: RasterizeConfig,
            deltas, delta_opt, box2worlds, active, cam, gt, normal,
            normal_valid, active_sh_degree, bg, extras=None):
         H, W = cam.height, cam.width
-        dev = field.means.device
         _zero_grads(field, *box_fields)
-        c_loc = field.capacity
-        dparams = {k: v.detach().clone().requires_grad_(True)
-                   for k, v in deltas.as_dict().items()}
-        dl = BoxDeltas(**dparams)
-        b2w = adjust_box2world(box2worlds, dl)
-        parts = [field_arrays(field, active_sh_degree)]
-        for i, bf in enumerate(box_fields):
-            arr = transform_field_arrays(field_arrays(bf, active_sh_degree),
-                                         b2w[i])
-            parts.append(arr._replace(valid=arr.valid & active[i]))
-        arrays = _concat_arrays(parts)
-        sizes = [c_loc] + [bf.capacity for bf in box_fields]
-        m2d = torch.zeros((sum(sizes), 2), dtype=torch.float32, device=dev,
-                          requires_grad=True)
+        dl = BoxDeltas(**{k: v.detach().clone().requires_grad_(True)
+                          for k, v in deltas.as_dict().items()})
+        arrays = frame_arrays(field, [
+            BoxInstance(bf, box2worlds[i], BoxDeltas(
+                **{k: v[i] for k, v in dl.as_dict().items()}))
+            for i, bf in enumerate(box_fields)], active_sh_degree)
+        sizes = [field.capacity] + [bf.capacity for bf in box_fields]
+        # an inactive slot's rows render nothing
+        arrays = arrays._replace(valid=torch.cat([
+            v if i == 0 else v & active[i - 1]
+            for i, v in enumerate(arrays.valid.split(sizes))]))
+        m2d = torch.zeros((sum(sizes), 2), dtype=torch.float32,
+                          device=field.means.device, requires_grad=True)
         out_loc, proj, (dropped, needed, needed_ex) = tile_render_local(
             plan, cam, raster_cfg, sh_total_degree, shard, *arrays,
             means2d_offset=m2d)
-        rgb, out = _whole_image(out_loc, shard, H, W, bg)
-        loss, ll1, nloss = _image_loss(rgb, out, gt, normal, opt_cfg,
-                                       use_normal_loss, H, W)
-        loss = loss + opt_cfg.lambda_dnormal * nloss * normal_valid
+        image = _whole_image(out_loc, shard, H, W, bg)
+        loss, ll1, nloss = train.image_loss(
+            image, gt, normal, normal_valid if use_normal_loss else 0.0,
+            opt_cfg)
         reg = (regularize_loss(dl) * active.to(torch.float32)).sum()
         loss = loss + boxmodel_lambda_reg * reg
         metrics = {}
         if perceptual_lam:
             from ..losses.perceptual import vgg_perceptual_loss
 
-            p_loss = vgg_perceptual_loss(extras["vgg"], rgb, gt)
+            p_loss = vgg_perceptual_loss(extras["vgg"], image.rgb, gt)
             loss = loss + perceptual_lam * p_loss
             metrics["perceptual_loss"] = p_loss.detach()
         if guidance is not None:
@@ -342,8 +339,8 @@ def make_tp_full_train_step(mesh: Mesh, opt_cfg, raster_cfg: RasterizeConfig,
             a = field_arrays(field, active_sh_degree)
             aug_loc, _, _ = tile_render_local(
                 plan_aug, g.cam, raster_cfg, sh_total_degree, shard, *a)
-            rgb_a, _ = _whole_image(aug_loc, shard, g.cam.height,
-                                    g.cam.width, bg)
+            rgb_a = _whole_image(aug_loc, shard, g.cam.height, g.cam.width,
+                                 bg).rgb
             h, w = rgb_a.shape[1:]
             s0 = min(max(int(g.crop_start), 0), w - h)
             g_loss = guidance(rgb_a[:, :, s0:s0 + h], step,
@@ -353,7 +350,8 @@ def make_tp_full_train_step(mesh: Mesh, opt_cfg, raster_cfg: RasterizeConfig,
         (loss / ndev).backward()
 
         g_delta = psum_tree({k: torch.zeros_like(v) if v.grad is None
-                             else v.grad for k, v in dparams.items()}, shard)
+                             else v.grad for k, v in dl.as_dict().items()},
+                           shard)
         g_delta = {k: torch.nan_to_num(v, nan=0.0) for k, v in g_delta.items()}
         g_m2d = m2d.grad if m2d.grad is not None else torch.zeros_like(m2d)
         norm, vis, rad = densify.stats_contribution(g_m2d, proj.radii, H, W)
@@ -373,18 +371,16 @@ def make_tp_full_train_step(mesh: Mesh, opt_cfg, raster_cfg: RasterizeConfig,
                 bo["count"] = bo["count"] + 1
             new_bstats.append(densify.apply_stats(bs, norm[i + 1],
                                                   vis[i + 1], rad[i + 1]))
-        nd2, ndo2 = optim.tensor_adam_step(
-            {k: v.detach() for k, v in dparams.items()}, g_delta, delta_opt,
-            boxmodel_lr)
+        optim.adam_step(deltas, g_delta, delta_opt, boxmodel_lr, eps=1e-8)
         keep = active.reshape(-1, 1)
-        new_deltas = BoxDeltas(**{k: torch.where(keep, nd2[k],
-                                                 getattr(deltas, k))
-                                  for k in BoxDeltas.LEAVES})
+        for k, v in dl.as_dict().items():  # an inactive slot's residual stays
+            getattr(deltas, k).copy_(torch.where(keep, getattr(deltas, k),
+                                                 v.detach()))
         metrics = {"loss": loss.detach(), "l1": ll1.detach(),
                    "normal_loss": nloss.detach(), "num_dropped": dropped,
                    "num_needed": needed, "num_needed_exch": needed_ex,
                    **metrics}
         return (field, opt_state, new_stats, step + 1, box_fields, box_opts,
-                new_bstats, new_deltas, ndo2, metrics)
+                new_bstats, deltas, delta_opt, metrics)
 
     return fn

@@ -351,8 +351,8 @@ def _clone(x):
         from ..convert import FIELD_KEYS
 
         return GaussianField(**{k: _clone(getattr(x, k)) for k in FIELD_KEYS})
-    if isinstance(x, dict):
-        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, dict):  # a dict, or an Adam state (a dict's subclass)
+        return type(x)({k: _clone(v) for k, v in x.items()})
     if dataclasses.is_dataclass(x):
         return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
                                          for f in dataclasses.fields(x)})

@@ -228,26 +228,21 @@ def evaluate(scene: Oracle, field, bfield=None, deltas=None,
     frame's annotated box-to-world adjusted by the frame's residual
     (`deltas`: {frame: BoxDeltas}, identity where absent), on a black
     background, clipped to [0, 1]."""
-    from ..boxmodel import BoxDeltas, adjust_box2world
     from ..losses import psnr
     from ..ops.rasterize import RasterizeConfig
-    from ..render import (_concat_arrays, _run, field_arrays,
-                          transform_field_arrays)
+    from ..render import BoxInstance, _run, frame_arrays
 
     dev = field.means.device
     cfg = RasterizeConfig(k_cap=k_cap, forward_only=True)
     vals = []
     for c in scene.test_cams:
         f, gt, _, b2w, cam = scene.inputs(c, dev)
-        parts = [field_arrays(field, 3)]
-        if bfield is not None:
-            d = (deltas or {}).get(f)
-            d = BoxDeltas.identity(dev) if d is None else d
-            parts.append(transform_field_arrays(
-                field_arrays(bfield, 3), adjust_box2world(b2w[0], d)))
-        out = _run(cam, _concat_arrays(parts), bg=torch.zeros(3, device=dev),
-                   scale_modifier=1.0, override_color=None, sh_degree=3,
-                   config=cfg, means2d_offset=None)
+        boxes = ([] if bfield is None else
+                 [BoxInstance(bfield, b2w[0], (deltas or {}).get(f))])
+        out = _run(cam, frame_arrays(field, boxes, 3),
+                   bg=torch.zeros(3, device=dev), scale_modifier=1.0,
+                   override_color=None, sh_degree=3, config=cfg,
+                   means2d_offset=None)
         vals.append(float(psnr(torch.clamp(out.rgb, 0, 1), gt)))
     return float(np.mean(vals))
 
@@ -365,9 +360,10 @@ def run_single(scene: Oracle, *, seed: int = 0, iters: int = R05_ITERS,
                        stats=DensifyStats.zeros(field.capacity, dev), step=0)
     bf = _clone(scene.bfield)
     bopt, bstats = optim.adam_init(bf), DensifyStats.zeros(bf.capacity, dev)
-    ident = BoxDeltas.identity(dev)
-    deltas = {f: (ident, optim.tensor_adam_init(ident.as_dict()))
-              for f in range(len(scene.noisy_b2w))}
+    deltas = {}  # each frame's own residual: Adam steps it in place
+    for f in range(len(scene.noisy_b2w)):
+        d = BoxDeltas.identity(dev)
+        deltas[f] = (d, optim.adam_init(d.as_dict()))
     launch0, t0 = _launches(), time.perf_counter()
     trend, losses, step_ms, events = [], [], [], []
 
@@ -527,10 +523,11 @@ def _tp_full_loop(mesh, scene: Oracle, spec: dict, dev, log,
     del full
     bf = shard_field(scene.bfield, me, ndev)
     bo, bs = optim.adam_init(bf), DensifyStats.zeros(bf.capacity, dev)
-    ident = BoxDeltas(**{k: v[None] for k, v in
+    deltas = {}  # each frame's own residual: Adam steps it in place
+    for f in range(len(scene.noisy_b2w)):
+        d = BoxDeltas(**{k: v[None] for k, v in
                          BoxDeltas.identity(dev).as_dict().items()})
-    deltas = {f: (ident, optim.tensor_adam_init(ident.as_dict()))
-              for f in range(len(scene.noisy_b2w))}
+        deltas[f] = (d, optim.adam_init(d.as_dict()))
     active = torch.ones(1, dtype=torch.bool, device=dev)
     bg = torch.zeros(3, device=dev)
     cam0 = scene.inputs(scene.train_cams[0], dev)[4]

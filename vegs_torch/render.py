@@ -12,11 +12,12 @@ rotation composed R_box @ R_gauss through quaternions, scales multiplied by
 the box's axis scales), after the learnable `BoxDeltas` residual is folded
 in (`boxmodel.adjust_box2world`). `compose_boxes` does that for every box
 of a call in one batched pass, under the span `boxes.compose`: the host's
-dispatch, not the rows, sets its cost. The parts are concatenated [static
-| box_0 | box_1 | ...] in front of the same `rasterize`, so the kernels
-(K1-K4) see one field; `_bounds` gives each part's rows, so the means2d
-tap's gradient splits per part for the densify statistics. `_run` is the
-training step's entry: it renders prepared field arrays with a means2d
+dispatch, not the rows, sets its cost. `frame_arrays` concatenates the
+parts [static | box_0 | box_1 | ...] in front of the same `rasterize`, so
+the kernels (K1-K4) see one field; it is the one way a frame's arrays are
+built, for `render_all`, the training steps and the tools. `_bounds` gives
+each part's rows, so the means2d tap's gradient splits per part for the
+densify statistics. `_run` renders prepared field arrays with a means2d
 gradient tap."""
 
 from __future__ import annotations
@@ -194,6 +195,19 @@ def compose_boxes(boxes: Sequence[BoxInstance],
         return FieldArrays(*(x[:, 0] for x in world))
 
 
+def frame_arrays(static_field: GaussianField, boxes: Sequence[BoxInstance],
+                 active_sh_degree) -> FieldArrays:
+    """A frame's arrays under the span `render.arrays`: the static field's
+    rows, then every box's in the world (`compose_boxes`), concatenated
+    [static | box_0 | box_1 | ...]; without boxes, the static field's
+    arrays themselves."""
+    with trace.span("render.arrays"):
+        parts = [field_arrays(static_field, active_sh_degree)]
+        if boxes:
+            parts.append(compose_boxes(boxes, active_sh_degree))
+        return _concat_arrays(parts)
+
+
 def render_dyn(
     camera,
     boxes: Sequence[BoxInstance],
@@ -230,11 +244,7 @@ def render_all(
     """The static field and the boxes composited in one rasterizer call.
     Returns (RasterOut, row boundaries [len(boxes) + 2] over the
     concatenated Gaussians: [static | box_0 | box_1 | ...])."""
-    with trace.span("render.arrays"):
-        parts = [field_arrays(static_field, active_sh_degree)]
-        if boxes:
-            parts.append(compose_boxes(boxes, active_sh_degree))
-        arrays = _concat_arrays(parts)
+    arrays = frame_arrays(static_field, boxes, active_sh_degree)
     out = _run(camera, arrays, bg=bg,
                scale_modifier=scale_modifier, override_color=None,
                sh_degree=sh_degree, config=config,

@@ -7,14 +7,14 @@ rasterizer call with a zero means2d tap (`render._run`); score
 (1 - lambda) L1 + lambda (1 - SSIM) plus the normal-guidance term and the
 deltas' pull toward identity; backpropagate with PyTorch autograd (kernels
 K2 and K3 inside the blend's and the gather's backward); take the Adam
-steps in place (the static field at the scene's extent, each box field at
-spatial scale 1 with `box_lr_mult` on its means, each (frame, instance)
-residual with `tensor_adam_step`) and fold the tap's gradient into each
-part's densify statistics. Between steps the host adapts the tile-instance
-capacities and densifies, prunes and resets opacity on the reference's
-schedule: the static field until `densify_until_iter`, the box fields,
-with half the grad threshold and screen size, until
-`densify_until_iter_box`.
+steps in place, every one through `optim.adam_step` (the static field at
+the scene's extent, each box field at spatial scale 1 with `box_lr_mult`
+on its means, each (frame, instance) residual at `boxmodel_lr` with eps
+1e-8) and fold the tap's gradient into each part's densify statistics.
+Between steps the host adapts the tile-instance capacities and densifies,
+prunes and resets opacity on the reference's schedule: the static field
+until `densify_until_iter`, the box fields, with half the grad threshold
+and screen size, until `densify_until_iter_box`.
 
 Each box instance keeps its own field, Adam state and statistics, and only
 the frame's instances are stepped: the JAX package's pooled stack of
@@ -48,9 +48,10 @@ added before the mean) averaged over the ranks; each box instance's
 gradients summed and divided by the number of ranks whose frame holds it;
 the densify statistics of every view added (norms, visibility) or maxed
 (radii); the losses averaged, the capacity signals maxed. The Adam steps
-then run the same on every rank. `Trainer(dp_devices=D)` draws D cameras
-a step from the host rng on every rank and trains camera `rank`; `main
---data_parallel D` starts the ranks (`parallel.launch.spawn`).
+then run the same on every rank. `train_step(comm=...)` is the port's one
+data-parallel step, static or with boxes. `Trainer(dp_devices=D)` draws D
+cameras a step from the host rng on every rank and trains camera `rank`;
+`main --data_parallel D` starts the ranks (`parallel.launch.spawn`).
 """
 
 from __future__ import annotations
@@ -72,8 +73,7 @@ from .gaussians import DensifyStats, GaussianField
 from .losses import l1_loss, loss_normal_guidance, psnr, ssim
 from .ops.projection import CameraParams
 from .ops.rasterize import RasterizeConfig, RasterOut
-from .render import (BoxInstance, _bounds, _concat_arrays, _run,
-                     compose_boxes, field_arrays, render_all)
+from .render import BoxInstance, _bounds, _run, field_arrays, render_all
 from .scene import Scene, box_matrix
 from .utils import trace
 
@@ -109,14 +109,10 @@ def loss_fn(field: GaussianField, m2d_offset, cam: CameraParams, gt, normal,
     2] zeros, C the rows of all parts): `image_loss`, plus `lambda_reg` times
     the deltas' pull toward identity when there are boxes. Returns (loss,
     l1, normal_loss, RasterOut)."""
-    with trace.span("render.arrays"):
-        parts = [field_arrays(field, active_sh_degree)]
-        if boxes:
-            parts.append(compose_boxes(boxes, active_sh_degree))
-        arrays = _concat_arrays(parts)
-    out = _run(cam, arrays, bg=bg, scale_modifier=1.0,
-               override_color=None, sh_degree=sh_total_degree,
-               config=raster_cfg, means2d_offset=m2d_offset)
+    out, _ = render_all(cam, field, boxes, bg=bg,
+                        active_sh_degree=active_sh_degree,
+                        sh_degree=sh_total_degree, config=raster_cfg,
+                        means2d_offset=m2d_offset)
     with trace.span("train.loss"):
         loss, ll1, nloss = image_loss(out, gt, normal, normal_valid, opt_cfg)
         if boxes:
@@ -172,14 +168,15 @@ def guidance_loss(field: GaussianField, guided: GuidedView, iteration: int,
 class BoxStep:
     """One box instance's state in a step: its field and Adam state
     (updated in place), its densify statistics, its box-to-world transform
-    in this frame, and this (frame, instance)'s residual with its Adam."""
+    in this frame, and this (frame, instance)'s residual with its Adam
+    state (updated in place)."""
 
     field: GaussianField
     opt: dict
     stats: DensifyStats
     box2world: torch.Tensor   # [4, 4]
     deltas: BoxDeltas
-    delta_opt: optim.TensorAdamState
+    delta_opt: optim.AdamState
     active: bool = True       # in this rank's frame (data parallel: a box
     #                           of another rank's frame is carried, not
     #                           rendered, and adds zero gradient here)
@@ -192,14 +189,15 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
                perceptual: Optional[Perceptual] = None, comm=None,
                g_extra: Optional[dict] = None):
     """One step -> (state, metrics, boxes). The fields' parameters and Adam
-    moments are updated in place; each `BoxStep` of `boxes` comes back with
-    new statistics, deltas and delta Adam state (`box_cfg`: boxmodel_lr and
-    boxmodel_lambda_reg). With `perceptual`, lam times the VGG perceptual
-    loss of the composite render joins the loss; with `guidance`, the
-    guidance loss of the static field's augmented view at `state.step`
-    (`guidance_loss`). Metrics are 0-d tensors on the field's device; the
-    terms add `perceptual_loss`, and `guidance_loss` with the augmented
-    render's `aug_num_dropped`, `aug_num_needed` and `aug_num_needed_raw`.
+    moments, and each active box's residual and its Adam state, are updated
+    in place; each `BoxStep` of `boxes` comes back with new statistics
+    (`box_cfg`: boxmodel_lr and boxmodel_lambda_reg). With `perceptual`,
+    lam times the VGG perceptual loss of the composite render joins the
+    loss; with `guidance`, the guidance loss of the static field's
+    augmented view at `state.step` (`guidance_loss`). Metrics are 0-d
+    tensors on the field's device; the terms add `perceptual_loss`, and
+    `guidance_loss` with the augmented render's `aug_num_dropped`,
+    `aug_num_needed` and `aug_num_needed_raw`.
 
     `g_extra` (a gradient per static leaf) is added to the static
     gradients. With `comm` (data parallel, vegs_tpu/train.py:231-339) this
@@ -302,18 +300,13 @@ def train_step(state: TrainState, cam: CameraParams, gt, normal, normal_valid,
                 live_deltas = iter(deltas)
                 for b, g, c in zip(boxes, g_boxes, contribs[1:]):
                     optim.adam_step(b.field, g, b.opt, box_lrs)
-                    new = dataclasses.replace(
-                        b, stats=densify.apply_stats(b.stats, *c))
                     if b.active:  # this rank's frame's residual, stepped here
-                        d = next(live_deltas)
                         g_d = {k: torch.nan_to_num(v.grad, nan=0.0)  # NaN guard
-                               for k, v in d.as_dict().items()}
-                        nd, nopt = optim.tensor_adam_step(
-                            {k: v.detach() for k, v in d.as_dict().items()},
-                            g_d, b.delta_opt, box_cfg.boxmodel_lr)
-                        new = dataclasses.replace(new, deltas=BoxDeltas(**nd),
-                                                  delta_opt=nopt)
-                    new_boxes.append(new)
+                               for k, v in next(live_deltas).as_dict().items()}
+                        optim.adam_step(b.deltas, g_d, b.delta_opt,
+                                        box_cfg.boxmodel_lr, eps=1e-8)
+                    new_boxes.append(dataclasses.replace(
+                        b, stats=densify.apply_stats(b.stats, *c)))
     metrics = {**metrics, **caps, **extra}
     return (TrainState(field=field, opt=state.opt, stats=stats,
                        step=state.step + 1), metrics, new_boxes)
@@ -323,24 +316,24 @@ def _pack_delta(b: BoxStep) -> torch.Tensor:
     """A box's residual and its Adam state as one float32 row [31]."""
     o = b.delta_opt
     parts = [b.deltas.as_dict()[k] for k in BoxDeltas.LEAVES]
-    parts += [o.mu[k] for k in BoxDeltas.LEAVES]
-    parts += [o.nu[k] for k in BoxDeltas.LEAVES]
+    parts += [o["mu"][k] for k in BoxDeltas.LEAVES]
+    parts += [o["nu"][k] for k in BoxDeltas.LEAVES]
     dev = parts[0].device
-    parts.append(o.count.to(device=dev, dtype=torch.float32).reshape(1))
+    parts.append(o["count"].to(device=dev, dtype=torch.float32).reshape(1))
     return torch.cat([p.reshape(-1).float() for p in parts])
 
 
 def _unpack_delta(row: torch.Tensor):
-    """Inverse of `_pack_delta` -> (BoxDeltas, TensorAdamState)."""
+    """Inverse of `_pack_delta` -> (BoxDeltas, its Adam state)."""
     sizes = (4, 3, 3)
     d = dict(zip(BoxDeltas.LEAVES, row[:10].split(sizes)))
     mu = dict(zip(BoxDeltas.LEAVES, row[10:20].split(sizes)))
     nu = dict(zip(BoxDeltas.LEAVES, row[20:30].split(sizes)))
     count = torch.tensor(int(row[30]), dtype=torch.int32)
     return BoxDeltas(**{k: v.clone() for k, v in d.items()}), \
-        optim.TensorAdamState(mu={k: v.clone() for k, v in mu.items()},
-                              nu={k: v.clone() for k, v in nu.items()},
-                              count=count)
+        optim.AdamState(mu={k: v.clone() for k, v in mu.items()},
+                        nu={k: v.clone() for k, v in nu.items()},
+                        count=count)
 
 
 def _reduce_contribs(contribs: list, comm) -> list:
@@ -523,7 +516,7 @@ class Trainer:
         self.box_stats = {k: DensifyStats.zeros(v.capacity, self.device)
                           for k, v in self.box_fields.items()}
         self.frame_deltas: dict = {}      # (frame, inst) -> BoxDeltas
-        self.frame_delta_opts: dict = {}  # (frame, inst) -> TensorAdamState
+        self.frame_delta_opts: dict = {}  # (frame, inst) -> optim.AdamState
         self._vgg = None
         if cfg.sd.perceptual_loss:
             from .losses import vgg as vgg_lib
@@ -654,7 +647,7 @@ class Trainer:
             key = (frame, inst)
             if key not in self.frame_deltas:
                 self.frame_deltas[key] = BoxDeltas.identity(device=self.device)
-                self.frame_delta_opts[key] = optim.tensor_adam_init(
+                self.frame_delta_opts[key] = optim.adam_init(
                     self.frame_deltas[key].as_dict())
             steps.append(BoxStep(
                 field=self.box_fields[inst], opt=self.box_opts[inst],
@@ -708,8 +701,6 @@ class Trainer:
                 perceptual=perceptual)
             for inst, b in zip(insts, stepped):
                 self.box_stats[inst] = b.stats
-                self.frame_deltas[(frame, inst)] = b.deltas
-                self.frame_delta_opts[(frame, inst)] = b.delta_opt
             return self._end_step(it, metrics)
 
     def _end_step(self, it: int, metrics: dict) -> dict:
@@ -763,7 +754,7 @@ class Trainer:
             key = (frames[me], inst)
             if active and key not in self.frame_deltas:
                 self.frame_deltas[key] = BoxDeltas.identity(device=self.device)
-                self.frame_delta_opts[key] = optim.tensor_adam_init(
+                self.frame_delta_opts[key] = optim.adam_init(
                     self.frame_deltas[key].as_dict())
             if active:
                 with trace.span("boxes.copy", sync=True):
@@ -775,7 +766,7 @@ class Trainer:
             deltas = (self.frame_deltas[key] if active
                       else BoxDeltas.identity(device=self.device))
             dopt = (self.frame_delta_opts[key] if active
-                    else optim.tensor_adam_init(deltas.as_dict()))
+                    else optim.adam_init(deltas.as_dict()))
             steps.append(BoxStep(
                 field=self.box_fields[inst], opt=self.box_opts[inst],
                 stats=self.box_stats[inst], box2world=b2w, deltas=deltas,
@@ -973,10 +964,10 @@ class Trainer:
         def stats(st):
             return {k: cpu(getattr(st, k)) for k in convert.STATS_KEYS}
 
-        def tensor_adam(o):
-            return {"mu": {k: cpu(v) for k, v in o.mu.items()},
-                    "nu": {k: cpu(v) for k, v in o.nu.items()},
-                    "count": cpu(o.count)}
+        def delta_adam(o):
+            return {"mu": {k: cpu(v) for k, v in o["mu"].items()},
+                    "nu": {k: cpu(v) for k, v in o["nu"].items()},
+                    "count": cpu(o["count"])}
 
         st = self.state
         return {
@@ -989,7 +980,7 @@ class Trainer:
                       for k, f in self.box_fields.items()},
             "deltas": {f"{fr}_{i}": {
                 "deltas": {k: cpu(v) for k, v in d.as_dict().items()},
-                "opt": tensor_adam(self.frame_delta_opts[(fr, i)])}
+                "opt": delta_adam(self.frame_delta_opts[(fr, i)])}
                 for (fr, i), d in self.frame_deltas.items()},
         }
 
